@@ -2,8 +2,10 @@
 
 Same physics, env and PPO as ``cat_tpu`` (the JAX package, kept as the
 reference), written with envs on the LEADING axis. The contact solve runs
-in a hand-written CUDA kernel (``ops/csrc/pgs_bj.cu``) on the card and in
-its plain PyTorch version on the CPU.
+in hand-written CUDA kernels on the card (``ops/csrc/pgs_bj.cu``, the
+block-Jacobi sweep the envs use; ``ops/csrc/pgs_gs.cu``, the serial
+Gauss-Seidel sweep of the raw engine's default solver) and in their plain
+PyTorch versions on the CPU.
 """
 
 from __future__ import annotations

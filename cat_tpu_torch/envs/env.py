@@ -1,5 +1,5 @@
-"""CatEnv: the batched constrained locomotion environment, flat terrain
-(port of cat_tpu/envs/env.py:238-804).
+"""CatEnv: the batched constrained locomotion environment, on the plane or
+on a heightfield (port of cat_tpu/envs/env.py:238-804).
 
 One ``step(state, action, generator)`` does, in the reference's order:
   1. action processing (raw action, previous action)
@@ -8,10 +8,12 @@ One ``step(state, action, generator)`` does, in the reference's order:
   4. terminations: time_out | illegal contact | upside down
   5. CaT constraints -> cstr_prob; reward = clip(r (1 - p), min 0);
      dones = cstr_prob, forced to 1 where an env resets
-  6. masked auto-reset (reset events, finished-episode accumulators)
+  6. terrain curriculum (heightfield), masked auto-reset at the env's own
+     patch (reset events, finished-episode accumulators)
   7. command schedule, deadzone, stochastic resample, yaw-rate flip
   8. interval push event
-  9. the 45-dim observation, optionally noise-corrupted
+  9. the 45-dim observation, plus the 187-point height scan on rough
+     terrain, optionally noise-corrupted
 
 Every random draw comes from the ``torch.Generator`` the caller passes, as
 full (N, ...) tensors; resets are masked selects, so the step never waits
@@ -82,6 +84,32 @@ class TerminationsCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class HeightScanCfg:
+    """Height-scanner observation grid (cat_tpu/envs/env.py:140-170): a
+    yaw-aligned grid around the base, obs = clip(base_z - offset_z - h)."""
+    size_x: float = 1.6
+    size_y: float = 1.0
+    resolution: float = 0.1
+    offset_z: float = 0.5
+    clip: float = 1.0
+    noise: float = 0.1
+
+    @property
+    def num_points(self) -> int:
+        nx = int(round(self.size_x / self.resolution)) + 1
+        ny = int(round(self.size_y / self.resolution)) + 1
+        return nx * ny
+
+    def grid(self) -> np.ndarray:
+        xs = np.linspace(-self.size_x / 2, self.size_x / 2,
+                         int(round(self.size_x / self.resolution)) + 1)
+        ys = np.linspace(-self.size_y / 2, self.size_y / 2,
+                         int(round(self.size_y / self.resolution)) + 1)
+        gx, gy = np.meshgrid(xs, ys, indexing="ij")
+        return np.stack([gx.ravel(), gy.ravel()], axis=-1)  # (P, 2)
+
+
+@dataclasses.dataclass(frozen=True)
 class EnvCfg:
     num_envs: int = 4096
     episode_length_s: float = 10.0
@@ -96,10 +124,16 @@ class EnvCfg:
     terminations: TerminationsCfg = TerminationsCfg()
     kp: float = 4.0
     kd: float = 0.2
-    # "bj:<n_blocks>[:<omega>[:<iterations>]]": the block-Jacobi sweep the
-    # CUDA kernel runs
-    solver_structure: str = "bj:4:0.9:6"
+    # PGS sweep count (None = the SolverParams default, 5); an explicit
+    # count wins over the one in solver_structure
+    solver_iterations: Optional[int] = None
+    # "gs" or "bj:<n_blocks>[:<omega>[:<iterations>]]"; None = the
+    # SolverParams default (serial Gauss-Seidel). The env default is the
+    # block-Jacobi sweep of the JAX package's env.
+    solver_structure: Optional[str] = "bj:4:0.9:6"
     terrain: Terrain = terrain_mod.plane()
+    height_scan: Optional[HeightScanCfg] = None
+    terrain_curriculum: bool = False   # promote / demote difficulty rows
 
     @property
     def step_dt(self) -> float:
@@ -126,18 +160,23 @@ def resolve_names(patterns: Sequence[str], names: Sequence[str],
 
 
 def engine_params(cfg: EnvCfg) -> EngineParams:
-    """The EngineParams an EnvCfg asks for (solver structure string parsed
-    as in cat_tpu/envs/env.py:275-286)."""
+    """The EngineParams an EnvCfg asks for, as cat_tpu/envs/env.py:268-286
+    builds them: None fields keep the SolverParams defaults, and an
+    explicit solver_iterations wins over the structure string's count."""
     params = EngineParams(dt=cfg.sim_dt, decimation=cfg.decimation,
                           kp=cfg.kp, kd=cfg.kd)
-    parts = cfg.solver_structure.split(":")
-    sp = params.solver._replace(structure=parts[0])
-    if len(parts) > 1:
-        sp = sp._replace(bj_blocks=int(parts[1]))
-    if len(parts) > 2:
-        sp = sp._replace(omega=float(parts[2]))
-    if len(parts) > 3:
-        sp = sp._replace(iterations=int(parts[3]))
+    sp = params.solver
+    if cfg.solver_iterations is not None:
+        sp = sp._replace(iterations=cfg.solver_iterations)
+    if cfg.solver_structure is not None:
+        parts = cfg.solver_structure.split(":")
+        sp = sp._replace(structure=parts[0])
+        if len(parts) > 1:
+            sp = sp._replace(bj_blocks=int(parts[1]))
+        if len(parts) > 2:
+            sp = sp._replace(omega=float(parts[2]))
+        if len(parts) > 3 and cfg.solver_iterations is None:
+            sp = sp._replace(iterations=int(parts[3]))
     return params._replace(solver=sp)
 
 
@@ -179,6 +218,10 @@ class CatEnv:
         self._cmd_scale = torch.tensor([2.0, 2.0, 0.25], device=dev)
         self.cset = ConstraintSet(constraint_terms, self._probe_data(2), dev)
         self.num_obs = 9 + 3 * self.num_actions  # 45 for Solo12
+        if cfg.height_scan is not None:
+            self._scan_grid = torch.as_tensor(cfg.height_scan.grid(),
+                                              dtype=torch.float32, device=dev)
+            self.num_obs += cfg.height_scan.num_points  # + 187
 
     # ---------------- helpers ----------------
 
@@ -243,11 +286,24 @@ class CatEnv:
         mu = buckets[torch.randint(0, ev.friction_num_buckets, (n,),
                                    generator=gen, device=dev)]
 
+        # terrain patch assignment: a random row of the easier half, the
+        # columns in turn (plane: all at the origin)
+        terr = self.cfg.terrain
+        if terr.kind == "hfield":
+            trow = torch.randint(0, max(1, terr.rows // 2), (n,),
+                                 generator=gen, device=dev).to(torch.int32)
+            tcol = (torch.arange(n, device=dev) % terr.cols).to(torch.int32)
+            origin = self._patch_origins(trow, tcol)
+        else:
+            trow = torch.zeros(n, dtype=torch.int32, device=dev)
+            tcol = torch.zeros(n, dtype=torch.int32, device=dev)
+            origin = torch.zeros(n, 2, device=dev)
+
         def z(*shape):
             return torch.zeros(shape, device=dev)
 
         return EnvState(
-            sim=self._reset_sim(gen, n),
+            sim=self._reset_sim(gen, n, origin),
             action=z(n, nj), prev_action=z(n, nj),
             episode_len=torch.zeros(n, dtype=torch.int32, device=dev),
             command=self._sample_commands(gen, n),
@@ -257,6 +313,7 @@ class CatEnv:
             running_max=self.cset.init_running_max(),
             max_p=self.cset.init_max_p(),
             episode_viol=z(n, nt), episode_prob=z(n, nt), episode_rew=z(n),
+            origin=origin, terrain_row=trow, terrain_col=tcol,
             common_step=0,
             acc_viol=z(nt), acc_prob=z(nt), acc_rew=z(), acc_len=z(),
             acc_count=z(), acc_term=z(3),
@@ -269,13 +326,22 @@ class CatEnv:
         standing = u[:, 3] < self.cfg.commands.rel_standing_envs
         return torch.where(standing[:, None], 0.0, cmd)
 
-    def _reset_sim(self, gen, n: int) -> SimState:
+    def _patch_origins(self, row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+        """World xy of the centres of patches (row, col)."""
+        t = self.cfg.terrain
+        H, W = t.size_m
+        x = (row.float() + 0.5) * t.patch_m - H / 2.0
+        y = (col.float() + 0.5) * t.patch_m - W / 2.0
+        return torch.stack([x, y], dim=-1)
+
+    def _reset_sim(self, gen, n: int, origin: torch.Tensor) -> SimState:
         """Fresh randomized states for ALL envs (masked-selected later):
-        pose xy +-reset_pose_xy, yaw +-reset_yaw, joints = default * U(scale),
-        zero velocity, on the terrain."""
+        pose xy = origin +-reset_pose_xy, yaw +-reset_yaw, joints =
+        default * U(scale), zero velocity, default height above the
+        terrain there."""
         ev = self.cfg.events
         u = self._rand(gen, n, 3 + self.model.nj)
-        xy = (2.0 * u[:, 0:2] - 1.0) * ev.reset_pose_xy
+        xy = origin + (2.0 * u[:, 0:2] - 1.0) * ev.reset_pose_xy
         yaw = (2.0 * u[:, 2] - 1.0) * ev.reset_yaw
         zero = torch.zeros_like(yaw)
         quat = quat_from_euler_zyx(zero, zero, yaw)
@@ -357,7 +423,26 @@ class CatEnv:
             torch.sum((time_out & ~terminated).float()),
         ])
 
-        fresh = self._reset_sim(gen, n)
+        # terrain curriculum: an env that timed out having walked at least
+        # half its commanded distance (and was commanded to move) goes one
+        # row up, one that walked under a quarter goes one row down; the
+        # reset below spawns it at its new patch
+        origin, trow = state.origin, state.terrain_row
+        if cfg.terrain_curriculum and cfg.terrain.kind == "hfield":
+            dist = torch.linalg.vector_norm(sim.qpos[:, 0:2] - origin, dim=1)
+            speed = torch.linalg.vector_norm(state.command[:, :2], dim=1)
+            required = speed * cfg.episode_length_s
+            moving = speed > cfg.commands.velocity_deadzone
+            move_up = time_out & (dist > 0.5 * required) & moving
+            move_down = dist < 0.25 * required
+            new_row = torch.clamp(trow + move_up.int() - move_down.int(),
+                                  0, cfg.terrain.rows - 1).to(torch.int32)
+            trow = torch.where(reset, new_row, trow)
+            origin = torch.where(reset[:, None],
+                                 self._patch_origins(trow, state.terrain_col),
+                                 origin)
+
+        fresh = self._reset_sim(gen, n, origin)
         sim = SimState(*[
             torch.where(reset.reshape((n,) + (1,) * (old.dim() - 1)), new, old)
             for new, old in zip(fresh, sim)
@@ -398,7 +483,8 @@ class CatEnv:
             command_time_left=time_left, mu=state.mu,
             running_max=running_max, max_p=max_p,
             episode_viol=episode_viol, episode_prob=episode_prob,
-            episode_rew=episode_rew, common_step=common_step,
+            episode_rew=episode_rew, origin=origin, terrain_row=trow,
+            terrain_col=state.terrain_col, common_step=common_step,
             acc_viol=acc_viol, acc_prob=acc_prob, acc_rew=acc_rew,
             acc_len=acc_len, acc_count=acc_count, acc_term=acc_term,
         )
@@ -440,14 +526,27 @@ class CatEnv:
                 return x
             return x + self._uniform(gen, x.shape, -mag, mag)
 
-        return torch.cat([
+        parts = [
             noise(data.base_ang_vel_b, nz.ang_vel) * 0.25,
             data.command * self._cmd_scale,
             noise(data.projected_gravity, nz.gravity) * 0.1,
             noise(data.joint_pos, nz.joint_pos),
             noise(data.joint_vel, nz.joint_vel) * 0.05,
             data.action,
-        ], dim=1)
+        ]
+        hs = self.cfg.height_scan
+        if hs is not None:
+            # the scan grid turned by the base yaw, around the base
+            cy, sy = torch.cos(data.base_yaw), torch.sin(data.base_yaw)
+            gx, gy = self._scan_grid[:, 0], self._scan_grid[:, 1]
+            px = data.base_pos[:, 0:1] + cy[:, None] * gx - sy[:, None] * gy
+            py = data.base_pos[:, 1:2] + sy[:, None] * gx + cy[:, None] * gy
+            h = terrain_mod.height_at(self.cfg.terrain,
+                                      torch.stack([px, py], dim=-1))
+            scan = torch.clamp(data.base_pos[:, 2:3] - hs.offset_z - h,
+                               -hs.clip, hs.clip)
+            parts.append(noise(scan, hs.noise))
+        return torch.cat(parts, dim=1)
 
     # ---------------- metrics ----------------
 
@@ -471,6 +570,10 @@ class CatEnv:
         metrics["Episode/terminated_contact_frac"] = state.acc_term[0] / cnt
         metrics["Episode/terminated_upside_down_frac"] = state.acc_term[1] / cnt
         metrics["Episode/timed_out_frac"] = state.acc_term[2] / cnt
+        if self.cfg.terrain.kind == "hfield":
+            # mean difficulty row now assigned (Curriculum/terrain_levels)
+            metrics["Curriculum/terrain_levels"] = torch.mean(
+                state.terrain_row.float())
         nt = self.cset.n_terms
         z = torch.zeros((), device=self.device)
         state = state._replace(

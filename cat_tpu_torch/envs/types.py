@@ -43,6 +43,9 @@ class EnvState(NamedTuple):
     episode_viol: torch.Tensor       # (N, n_terms)
     episode_prob: torch.Tensor       # (N, n_terms)
     episode_rew: torch.Tensor        # (N,)
+    origin: torch.Tensor             # (N, 2) spawn patch centre (flat: 0)
+    terrain_row: torch.Tensor        # (N,) int32 difficulty row (flat: 0)
+    terrain_col: torch.Tensor        # (N,) int32 terrain type column
     common_step: int                 # total control steps
     # finished-episode accumulators, drained once per train iteration
     acc_viol: torch.Tensor           # (n_terms,)

@@ -1,15 +1,22 @@
-"""Block-Jacobi PGS contact solve: the CUDA kernel, its wrapper, and its
-plain PyTorch version.
+"""PGS contact solves: the CUDA kernels, their wrappers, and their plain
+PyTorch versions.
 
-Replaces the TPU kernel ``_pgs_kernel_bj`` (cat_tpu/ops/pgs_pallas.py:419,
-launched by ``pgs_solve_lanes_bj``). Layout: envs LEADING and contiguous,
-E (N, 3nc, nv), W = M^-1 E^T (N, nv, 3nc), b / lam0 / result (N, 3nc)
-interleaved (t1, t2, n) per contact, bias / active (N, nc), mu (N,).
+Two kernels, one per sweep structure of ``SolverParams``:
+  * ``pgs_bj`` (``csrc/pgs_bj.cu``) replaces the TPU kernel
+    ``_pgs_kernel_bj`` (cat_tpu/ops/pgs_pallas.py:419, launched by
+    ``pgs_solve_lanes_bj``): block-Jacobi sweeps over contact blocks;
+  * ``pgs_gs`` (``csrc/pgs_gs.cu``) replaces the TPU kernel ``_pgs_kernel``
+    (cat_tpu/ops/pgs_pallas.py:103, launched by ``pgs_solve_lanes``): the
+    serial Gauss-Seidel sweep over contacts, omega 1.
 
-``pgs_bj`` dispatches on the tensors' device: on a CUDA tensor it launches
-the kernel (``csrc/pgs_bj.cu``, built by plain nvcc and bound with ctypes)
-or raises; on a CPU tensor it runs ``pgs_bj_reference``. There is no
-fallback from the card to the plain version.
+Layout: envs LEADING and contiguous, E (N, 3nc, nv), W = M^-1 E^T
+(N, nv, 3nc), b / lam0 / result (N, 3nc) interleaved (t1, t2, n) per
+contact, bias / active (N, nc), mu (N,).
+
+``pgs_bj`` and ``pgs_gs`` dispatch on the tensors' device: on a CUDA tensor
+they launch the kernel (built by plain nvcc and bound with ctypes) or
+raise; on a CPU tensor they run the plain version. There is no fallback
+from the card to the plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ import torch
 
 from . import build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pgs_bj.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "pgs_bj.cu"
+GS_SOURCE = CSRC / "pgs_gs.cu"
 MAX_CONTACTS = 64
 MAX_SMEM_BYTES = 232448  # opt-in shared memory of one block on Hopper
 
@@ -123,6 +132,38 @@ def pgs_bj_reference(
     return out
 
 
+def _check_operands(E, W, b, bias, active, mu, lam0) -> Tuple[int, int, int]:
+    """The checks both kernels make before a launch: CUDA float32
+    contiguous operands on E's device, of the shapes E implies, with
+    1..MAX_CONTACTS contacts. Returns (N, nc, nv)."""
+    n, n3, nv = E.shape
+    nc = n3 // 3
+    shapes = {"E": (E, (n, n3, nv)), "W": (W, (n, nv, n3)),
+              "b": (b, (n, n3)), "bias": (bias, (n, nc)),
+              "active": (active, (n, nc)), "mu": (mu, (n,)),
+              "lam0": (lam0, (n, n3))}
+    if n3 % 3 or not 0 < nc <= MAX_CONTACTS:
+        raise ValueError(f"3nc={n3} rows: need 1..{MAX_CONTACTS} contacts")
+    for name, (t, shape) in shapes.items():
+        if t.device != E.device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, E on {E.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}, not float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return n, nc, nv
+
+
+def _device_and_stream(t: torch.Tensor):
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
 class PgsBjKernel:
     """ctypes binding of ``csrc/pgs_bj.cu``.
 
@@ -165,24 +206,7 @@ class PgsBjKernel:
 
     def __call__(self, E, W, b, bias, active, mu, lam0, *, iterations: int,
                  cfm: float, omega: float, contact_perm, blocks) -> torch.Tensor:
-        n, n3, nv = E.shape
-        nc = n3 // 3
-        shapes = {"E": (E, (n, n3, nv)), "W": (W, (n, nv, n3)),
-                  "b": (b, (n, n3)), "bias": (bias, (n, nc)),
-                  "active": (active, (n, nc)), "mu": (mu, (n,)),
-                  "lam0": (lam0, (n, n3))}
-        if n3 % 3 or not 0 < nc <= MAX_CONTACTS:
-            raise ValueError(f"3nc={n3} rows: need 1..{MAX_CONTACTS} contacts")
-        for name, (t, shape) in shapes.items():
-            if t.device != E.device or t.device.type != "cuda":
-                raise ValueError(f"{name} is on {t.device}, E on {E.device}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name} is {t.dtype}, not float32")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                                 f"expected {shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} is not contiguous")
+        n, nc, nv = _check_operands(E, W, b, bias, active, mu, lam0)
         if sorted(contact_perm) != list(range(nc)):
             raise ValueError("contact_perm is not a permutation of the contacts")
         if sum(g for _, g in blocks) != nc:
@@ -198,9 +222,7 @@ class PgsBjKernel:
             active.data_ptr(), mu.data_ptr(), lam0.data_ptr(),
             cperm.data_ptr(), blk.data_ptr(), out.data_ptr(),
             n, nc, nv, len(blocks), iterations, cfm, omega,
-            E.device.index if E.device.index is not None
-            else torch.cuda.current_device(),
-            torch.cuda.current_stream(E.device).cuda_stream,
+            *_device_and_stream(E),
         )
         if err != 0:
             raise RuntimeError("pgs_bj kernel launch failed: "
@@ -218,3 +240,134 @@ def pgs_bj(E, W, b, bias, active, mu, lam0, **kw) -> torch.Tensor:
     if E.device.type == "cpu":
         return pgs_bj_reference(E, W, b, bias, active, mu, lam0, **kw)
     return KERNEL(E, W, b, bias, active, mu, lam0, **kw)
+
+
+def pgs_gs_reference(
+    E, W, b, bias, active, mu, lam0, *, iterations: int, cfm: float,
+    row_dofs: Optional[Sequence[Sequence[int]]] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the serial Gauss-Seidel kernel. Mirrors
+    _pgs_lanes_xla (cat_tpu/sim/engine_lanes.py:79) and _pgs_kernel
+    (pgs_pallas.py:103) in operation order: dense A, the warm start summed
+    row by row, then one contact at a time. ``row_dofs`` (the nonzero dofs
+    of each row of E) only tells the kernel which terms of the assembly
+    it may skip; the plain version sums all of them, which adds exact
+    zeros and gives the same A."""
+    n, n3, nv = E.shape
+    A = torch.zeros(n, n3, n3, dtype=E.dtype, device=E.device)
+    for k in range(nv):
+        A = A + E[:, :, k, None] * W[:, None, k, :]
+    lam = lam0 * active.repeat_interleave(3, dim=1)
+    w = torch.zeros_like(b)
+    for r in range(n3):
+        w = w + A[:, r] * lam[:, r, None]
+    inv_d = 1.0 / (torch.diagonal(A, dim1=1, dim2=2) + cfm)
+    # a contact inactive in every env keeps lam = 0 and moves w by exact
+    # zeros: the sweep leaves it out, as the kernel does per env
+    live = [i for i, a in enumerate(active.any(dim=0).tolist()) if a]
+    for _ in range(iterations):
+        for i in live:
+            k = 3 * i
+            act = active[:, i]
+            v = w[:, k:k + 3] + b[:, k:k + 3]
+            l0, l1, l2 = lam[:, k], lam[:, k + 1], lam[:, k + 2]
+            ln_new = torch.clamp(l2 - (v[:, 2] + bias[:, i]) * inv_d[:, k + 2],
+                                 min=0.0) * act
+            dn = ln_new - l2
+            vt1 = v[:, 0] + A[:, k, k + 2] * dn
+            vt2 = v[:, 1] + A[:, k + 1, k + 2] * dn
+            lt1 = l0 - vt1 * inv_d[:, k]
+            lt2 = l1 - vt2 * inv_d[:, k + 1]
+            tn = torch.sqrt(lt1 * lt1 + lt2 * lt2 + 1e-12)
+            scale = torch.clamp(mu * ln_new / tn, max=1.0) * act
+            n0, n1 = lt1 * scale, lt2 * scale
+            # w += A[:, k:k+3] dlam (A symmetric: rows serve as columns)
+            w = (w + A[:, k] * (n0 - l0)[:, None]
+                 + A[:, k + 1] * (n1 - l1)[:, None]
+                 + A[:, k + 2] * dn[:, None])
+            lam[:, k], lam[:, k + 1], lam[:, k + 2] = n0, n1, ln_new
+    return lam
+
+
+class PgsGsKernel:
+    """ctypes binding of ``csrc/pgs_gs.cu``.
+
+    ``launches`` counts the kernel launches this wrapper made; nothing
+    else changes it. The library is built at the first launch (or by
+    ``load``); the table of nonzero dofs per row is cached on the device.
+    """
+
+    def __init__(self):
+        self.launches = 0
+        self.built: Optional[build.Built] = None
+        self._lib = None
+        self._dofs = {}
+
+    def load(self) -> build.Built:
+        if self._lib is None:
+            self.built = build.build_shared_library(GS_SOURCE)
+            lib = ctypes.CDLL(str(self.built.path))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.pgs_gs_launch.argtypes = (
+                [p] * 10 + [i] * 4 + [ctypes.c_float, i, p])
+            lib.pgs_gs_launch.restype = i
+            lib.pgs_gs_smem_bytes.argtypes = [i, i]
+            lib.pgs_gs_smem_bytes.restype = ctypes.c_size_t
+            lib.pgs_gs_error_string.argtypes = [i]
+            lib.pgs_gs_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self.built
+
+    def _dof_table(self, device, n3: int, nv: int, row_dofs):
+        """(dofs (3nc, nv) int32, counts (3nc,) int32): row r of the
+        assembly sums over dofs[r, :counts[r]]; every dof when row_dofs is
+        None."""
+        rows = (tuple(tuple(range(nv)) for _ in range(n3)) if row_dofs is None
+                else tuple(tuple(int(k) for k in r) for r in row_dofs))
+        if len(rows) != n3 or any(not r or min(r) < 0 or max(r) >= nv
+                                  for r in rows):
+            raise ValueError(f"row_dofs must give 1..{nv} dofs in [0, {nv}) "
+                             f"for each of the {n3} rows")
+        key = (str(device), nv, rows)
+        if key not in self._dofs:
+            table = np.zeros((n3, nv), np.int32)
+            for r, ks in enumerate(rows):
+                table[r, :len(ks)] = ks
+            self._dofs[key] = (
+                torch.as_tensor(table, device=device),
+                torch.tensor([len(r) for r in rows], dtype=torch.int32,
+                             device=device),
+            )
+        return self._dofs[key]
+
+    def __call__(self, E, W, b, bias, active, mu, lam0, *, iterations: int,
+                 cfm: float, row_dofs=None) -> torch.Tensor:
+        n, nc, nv = _check_operands(E, W, b, bias, active, mu, lam0)
+        self.load()
+        smem = self._lib.pgs_gs_smem_bytes(nc, nv)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"nc={nc}, nv={nv} needs {smem} B of shared memory")
+        dofs, counts = self._dof_table(E.device, 3 * nc, nv, row_dofs)
+        out = torch.empty_like(lam0)
+        err = self._lib.pgs_gs_launch(
+            E.data_ptr(), W.data_ptr(), b.data_ptr(), bias.data_ptr(),
+            active.data_ptr(), mu.data_ptr(), lam0.data_ptr(),
+            dofs.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            n, nc, nv, iterations, cfm, *_device_and_stream(E),
+        )
+        if err != 0:
+            raise RuntimeError("pgs_gs kernel launch failed: "
+                               + self._lib.pgs_gs_error_string(err).decode())
+        self.launches += 1
+        return out
+
+
+GS_KERNEL = PgsGsKernel()
+
+
+def pgs_gs(E, W, b, bias, active, mu, lam0, **kw) -> torch.Tensor:
+    """The serial Gauss-Seidel contact solve on the operands' device: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if E.device.type == "cpu":
+        return pgs_gs_reference(E, W, b, bias, active, mu, lam0, **kw)
+    return GS_KERNEL(E, W, b, bias, active, mu, lam0, **kw)

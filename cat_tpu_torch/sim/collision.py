@@ -2,8 +2,10 @@
 
 Port of detect_contacts_lanes / detect_pair_contacts_lanes
 (cat_tpu/sim/dynamics_lanes.py:416-549): sphere candidates against the
-plane, then self-collision capsule pairs. Rows are (t1, t2, n) per contact;
-on the plane the frame is the world frame (t1 = x, t2 = y, n = z).
+terrain, then self-collision capsule pairs. Rows are (t1, t2, n) per
+contact. On the plane the frame is the world frame (t1 = x, t2 = y,
+n = z); on a heightfield it is the surface frame of the deepest of five
+probes (terrain.surface_gap): t1 = normalise(e_x - n n_x), t2 = n x t1.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import terrain as terrain_mod
 from .dynamics import Kin, ModelTensors, _cross, _mv, point_jacobians
 from .terrain import Terrain
 
@@ -75,18 +78,30 @@ def detect_pair_contacts(mt: ModelTensors, kin: Kin):
 
 
 def detect_contacts(mt: ModelTensors, terrain: Terrain, kin: Kin) -> Contacts:
-    """Plane candidates (world frame) followed by the self-collision pairs."""
+    """Terrain candidates followed by the self-collision pairs."""
     m = mt.model
     n, nc = kin.o.shape[0], m.ncand_terrain
     body = mt.cand_body
     x = kin.o[:, body] + _mv(kin.R[:, body], mt.cand_offset)  # (N, nc, 3)
-    Jc = point_jacobians(kin, mt.anc[body], x)
-    phi = x[..., 2] - mt.cand_radius
-    frame = None
+    J = point_jacobians(kin, mt.anc[body], x)                 # (N, nc, 3, nv)
+    if terrain.kind == "plane":
+        phi = x[..., 2] - mt.cand_radius
+        frame, Jc = None, J
+    else:
+        d, nrm = terrain_mod.surface_gap(terrain, x, mt.cand_radius)
+        phi = d - mt.cand_radius
+        ex = torch.zeros_like(nrm)
+        ex[..., 0] = 1.0
+        t1 = ex - nrm * nrm[..., 0:1]
+        t1 = t1 / torch.sqrt(_dot(t1, t1))[..., None]
+        t2 = _cross(nrm, t1)
+        frame = torch.stack([t1, t2, nrm], dim=-2)           # (N, nc, 3, 3)
+        Jc = torch.matmul(frame, J)
     if m.npair:
         phi_p, Jp, frame_p = detect_pair_contacts(mt, kin)
-        frame = torch.cat([
-            torch.eye(3, device=x.device).expand(n, nc, 3, 3), frame_p], dim=1)
+        if frame is None:
+            frame = torch.eye(3, device=x.device).expand(n, nc, 3, 3)
+        frame = torch.cat([frame, frame_p], dim=1)
         phi = torch.cat([phi, phi_p], dim=1)
         Jc = torch.cat([Jc, Jp], dim=1)
     return Contacts(phi=phi, E=Jc.reshape(n, 3 * m.ncand, m.nv), frame=frame)

@@ -7,14 +7,16 @@ branch, the JAX package's production path). One control step is
 
   1. IdealPD torque  tau = clip(Kp (q* - q) - Kd qd, +-effort)
   2. v_free = v + h M^-1 (tau - C)
-  3. contact rows, W = M^-1 E^T, b = E v_free -> block-Jacobi PGS impulses
+  3. contact rows, W = M^-1 E^T, b = E v_free -> PGS impulses (the
+     serial Gauss-Seidel kernel for structure "gs", the SolverParams
+     default; the block-Jacobi kernel for "bj", the env default)
   4. semi-implicit Euler (quaternion exponential map), joint-limit clamp
   5. per-body net contact forces with a 3-deep history, foot air time
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -142,23 +144,30 @@ def substep_post(mt: dyn.ModelTensors, params: EngineParams, s: SimState,
     )
 
 
-def pgs_kwargs(model: RobotModel, sp: solver.SolverParams) -> dict:
-    """The block-Jacobi contact solve's keyword arguments for ``pgs_bj``."""
-    if sp.structure != "bj":
-        raise ValueError(
-            f"solver structure {sp.structure!r} is not ported; the port runs "
-            "the block-Jacobi kernel only ('bj')")
-    perm, blocks = pgs.plan_contact_blocks(model, sp.bj_blocks)
-    return dict(iterations=sp.iterations, cfm=sp.cfm, omega=sp.omega,
-                contact_perm=perm, blocks=blocks)
+def contact_solver(model: RobotModel, sp: solver.SolverParams):
+    """The contact solve ``sp.structure`` asks for and its keyword
+    arguments: "gs" -> ``pgs_gs`` (``omega`` and ``bj_blocks`` ignored, as
+    cat_tpu/sim/engine_lanes.py:252-257 does), "bj" -> ``pgs_bj``."""
+    if sp.structure == "gs":
+        return pgs.pgs_gs, dict(
+            iterations=sp.iterations, cfm=sp.cfm,
+            row_dofs=pgs.contact_row_dofs(model, model.ancestor_mask()))
+    if sp.structure == "bj":
+        perm, blocks = pgs.plan_contact_blocks(model, sp.bj_blocks)
+        return pgs.pgs_bj, dict(iterations=sp.iterations, cfm=sp.cfm,
+                                omega=sp.omega, contact_perm=perm,
+                                blocks=blocks)
+    raise ValueError(f"solver structure {sp.structure!r}: the port runs "
+                     "'gs' (serial Gauss-Seidel) and 'bj' (block-Jacobi)")
 
 
 class Engine(NamedTuple):
     """The batched engine of one model on one device: its tensors, its
-    parameters, its terrain and the contact solve's arguments."""
+    parameters, its terrain, the contact solve and its arguments."""
     mt: dyn.ModelTensors
     params: EngineParams
     terrain: Terrain
+    solve: Callable      # pgs.pgs_gs or pgs.pgs_bj
     pgs_kwargs: dict
 
     def contact_problem(self, s: SimState, target_q, mu, com_offset=None):
@@ -176,7 +185,7 @@ class Engine(NamedTuple):
     def substep(self, s: SimState, target_q, mu, com_offset=None) -> SimState:
         (tau_j, v_free, W, frame), operands = self.contact_problem(
             s, target_q, mu, com_offset)
-        lam = pgs.pgs_bj(*operands, **self.pgs_kwargs)
+        lam = self.solve(*operands, **self.pgs_kwargs)
         return substep_post(self.mt, self.params, s, tau_j, v_free, W, lam,
                             frame)
 
@@ -194,4 +203,4 @@ def make_batched_step(model: RobotModel, params: EngineParams,
     """The control step of ``model`` on ``device`` (an Engine)."""
     return Engine(dyn.ModelTensors.build(model, device), params,
                   terrain if terrain is not None else plane(),
-                  pgs_kwargs(model, params.solver))
+                  *contact_solver(model, params.solver))

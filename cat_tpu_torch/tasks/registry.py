@@ -18,6 +18,18 @@ def _flat(num_envs=4096, **kw):
     return solo12_flat.make_env(num_envs, **kw)
 
 
+def _rough(num_envs=4096, **kw):
+    from cat_tpu_torch.tasks import solo12_rough
+
+    return solo12_rough.make_env(num_envs, **kw)
+
+
+def _rough_play(num_envs=50, **kw):
+    from cat_tpu_torch.tasks import solo12_rough
+
+    return solo12_rough.make_env(num_envs, play=True, **kw)
+
+
 def _ppo_cfg():
     from cat_tpu_torch.rl.ppo import PpoCfg
 
@@ -27,6 +39,11 @@ def _ppo_cfg():
 _REGISTRY: Dict[str, TaskSpec] = {
     "Solo12-CaT-Flat-v0": TaskSpec(
         _flat, _ppo_cfg, "Solo12 flat-terrain CaT velocity tracking (train)"),
+    "Solo12-CaT-Rough-v0": TaskSpec(
+        _rough, _ppo_cfg, "Solo12 rough-terrain CaT (heightfield + height "
+        "scan + terrain curriculum)"),
+    "Solo12-CaT-Rough-Play-v0": TaskSpec(
+        _rough_play, _ppo_cfg, "Solo12 rough-terrain CaT (50 envs, no noise)"),
 }
 
 

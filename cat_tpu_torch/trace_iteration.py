@@ -1,10 +1,12 @@
 """Where the time of one PPO iteration goes on the card.
 
-  python -m cat_tpu_torch.trace_iteration [--num_envs 4096] [--out FILE]
+  python -m cat_tpu_torch.trace_iteration [--task Solo12-CaT-Flat-v0]
+      [--num_envs 4096] [--out FILE]
 
-After one warm-up iteration of Solo12-CaT-Flat-v0 (clean_rl preset) it
-times the parts, then one iteration, then profiles one more (in that order:
-the profiler's hooks slow later launches), and prints one JSON object:
+After one warm-up iteration of the task (clean_rl preset; the flat task
+unless --task names another, e.g. Solo12-CaT-Rough-v0) it times the parts,
+then one iteration, then profiles one more (in that order: the profiler's
+hooks slow later launches), and prints one JSON object:
   * ``iteration_s``: host wall time of one iteration, synchronised;
   * ``device_busy_s`` / ``device_idle_share``: the sum of the CUDA kernel
     times torch.profiler records over that iteration, and the share of the
@@ -45,18 +47,18 @@ def _ms(fn, reps: int) -> float:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    from cat_tpu_torch.ops import pgs
     from cat_tpu_torch.rl.ppo import PPO
     from cat_tpu_torch.sim import engine
     from cat_tpu_torch.tasks import registry
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--task", default="Solo12-CaT-Flat-v0")
     p.add_argument("--num_envs", type=int, default=4096)
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
     n = args.num_envs
-    spec = registry.get("Solo12-CaT-Flat-v0")
+    spec = registry.get(args.task)
     env = spec.make_env(n, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     es = env.init(gen, n)
@@ -71,7 +73,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     eng = env.engine
     kw = eng.pgs_kwargs
     (tau_j, v_free, W, frame), ops = eng.contact_problem(es.sim, target, es.mu)
-    lam = pgs.pgs_bj(*ops, **kw)
+    lam = eng.solve(*ops, **kw)
     with torch.no_grad():
         parts = {
             "policy_forward": _ms(lambda: ppo.net(obs), 20),
@@ -79,7 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "control_step": _ms(lambda: eng(es.sim, target, es.mu), 10),
             "substep_contact_problem": _ms(
                 lambda: eng.contact_problem(es.sim, target, es.mu), 20),
-            "contact_kernel": _ms(lambda: pgs.pgs_bj(*ops, **kw), 50),
+            "contact_kernel": _ms(lambda: eng.solve(*ops, **kw), 50),
             "substep_integrate_sensors": _ms(lambda: engine.substep_post(
                 eng.mt, eng.params, es.sim, tau_j, v_free, W, lam, frame), 20),
         }
@@ -102,7 +104,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
 
     out = {
-        "device": torch.cuda.get_device_name(0), "num_envs": n,
+        "device": torch.cuda.get_device_name(0), "task": args.task,
+        "num_envs": n,
         "iteration_s": wall,
         "env_steps_per_s": ppo.cfg.num_steps * n / wall,
         "device_busy_s": busy_us / 1e6,

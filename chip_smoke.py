@@ -4,17 +4,27 @@
   python3 chip_smoke.py
 
 Phases, each printed with its elapsed seconds:
-  0. device: the card, its power limit, the torch and CUDA versions;
-  1. build: the block-Jacobi PGS kernel from ops/csrc/pgs_bj.cu (plain nvcc);
-  2. kernel against its plain PyTorch version at N = 4096, on contact
-     problems captured from the port's own env and on seeded random
-     problems, with the kernel's time, the plain version's time and the
-     bound the card sets;
-  3. the main path: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096
-     envs, 2 PPO iterations; the kernel must launch 2 x 24 x 4 times;
-  4. physics check: the policy the JAX package trained
+  device: the card, its power limit, the torch and CUDA versions;
+  build: both PGS kernels, ops/csrc/pgs_bj.cu and ops/csrc/pgs_gs.cu, one
+     plain nvcc each, started together;
+  kernel: the block-Jacobi kernel against its plain PyTorch version at
+     N = 4096, on contact problems captured from the port's flat env and
+     on seeded random problems, with the kernel's time, the plain
+     version's time and the bound the card sets;
+  kernel-gs: the same for the serial Gauss-Seidel kernel, on problems
+     captured from the raw engine on the production rough terrain;
+  train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
+     2 PPO iterations; pgs_bj must launch 2 x 24 x 4 times;
+  engine-gs: the raw engine with the default SolverParams (GS-5) on the
+     production rough terrain, 4096 Solo12s dropped on patch centres hold
+     their default pose for 100 control steps; pgs_gs must launch 400
+     times and every robot must stand on its pad;
+  train-rough: ``cat_tpu_torch.train`` for Solo12-CaT-Rough-v0 at 4096
+     envs, 2 PPO iterations; pgs_bj must launch 192 times;
+  play: the policy the JAX package trained
      (runs/solo12_flat_2000it/policy_params.npz) walks 4096 envs for 200
      control steps; at least half must never hit a hard termination.
+Every launch count is set to 0 just before its path and read just after.
 The last lines are a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
@@ -28,6 +38,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 DEADLINE_S = 900
@@ -36,6 +47,7 @@ T0 = time.perf_counter()
 N_ENVS = 4096
 PPO_ITERS = 2
 PLAY_STEPS = 200
+RAW_STEPS = 100      # engine-gs: control steps of the raw engine
 # the play command: forward at the top of the training range, where the
 # JAX-trained policy walks from rest (at 0.5 m/s many envs stay standing,
 # in the JAX package as in the port)
@@ -93,20 +105,124 @@ def random_problems(n, nc, nv, gen, device):
     return E, W, b, bias, active, mu, lam0
 
 
-def pgs_counts(model, anc, n, iterations):
+def pgs_counts(model, anc, n, iterations, active=None):
     """Bytes and f32 operations one solve needs at these shapes: every
     operand read once and the result written once; the assembly over the
     nonzero dofs only (contact_row_dofs), warm start, sweeps (the column
-    updates plus ~32 operations of projection per contact)."""
+    updates plus ~32 operations of projection per contact).
+
+    With ``active`` (the solve's (N, nc) activity) the counts are the
+    serial Gauss-Seidel sweep's: a contact inactive in an env holds no
+    impulse and needs no update, so the warm start and each of the
+    ``iterations`` sweeps count that env's active contacts only, each a
+    rank-3 update of the 3nc rows of w plus its projection."""
     from cat_tpu_torch.ops import pgs
 
     nc, nv = model.ncand, model.nv
     n3 = 3 * nc
     byts = 4 * n * (2 * n3 * nv + 2 * n3 + n3 + 2 * nc + 1) + 4 * (nc + 8)
     nnz = sum(len(r) for r in pgs.contact_row_dofs(model, anc))
-    flops = n * (2 * n3 * nnz + 2 * n3 * n3
-                 + iterations * (2 * n3 * n3 + 32 * nc))
+    if active is None:
+        flops = n * (2 * n3 * nnz + 2 * n3 * n3
+                     + iterations * (2 * n3 * n3 + 32 * nc))
+    else:
+        n_act = float(active.sum())
+        flops = (n * 2 * n3 * nnz + 2 * n3 * 3 * n_act
+                 + iterations * n_act * (3 * 2 * n3 + 32))
     return byts, flops
+
+
+def bound(byts, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the f32 operations over its peak rate."""
+    t_bytes = byts / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernel(phase, kernel, plain, problems) -> float:
+    """Hold ``kernel`` against ``plain`` on each problem, given as
+    (operands, keyword arguments); the max abs error over them."""
+    import torch
+
+    max_abs_err = 0.0
+    for name, (ops, kw) in problems.items():
+        lam_k = kernel(*ops, **kw)
+        torch.cuda.synchronize()
+        lam_p = plain(*ops, **kw)
+        err = (lam_k - lam_p).abs()
+        scale = lam_p.abs().max().item()
+        bad = int((err > ATOL_REL * scale + RTOL * lam_p.abs()).sum())
+        log(phase, f"{name}: max|lam| {scale:.4g}, max abs err "
+                   f"{err.max().item():.3g}, max rel err "
+                   f"{(err.max().item() / max(scale, 1e-30)):.3g}; "
+                   f"{bad} of {err.numel()} outside tolerance "
+                   f"(rtol {RTOL}, atol {ATOL_REL} x max|lam|)")
+        if bad or not torch.isfinite(lam_k).all():
+            raise RuntimeError(f"kernel disagrees with its plain version ({name})")
+        max_abs_err = max(max_abs_err, err.max().item())
+    return max_abs_err
+
+
+def raw_engine_on_rough(dev):
+    """The raw engine with the default SolverParams (GS-5) on the
+    production rough terrain, and N_ENVS Solo12s in their default pose,
+    env i above the centre of patch (i // 8 % 10, i % 8) at h + 0.30 m.
+    Returns (engine, state, target, mu, spots)."""
+    import torch
+
+    from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP, solo12_model
+    from cat_tpu_torch.sim import engine, terrain
+
+    model = solo12_model()
+    terr = terrain.generate_rough(seed=0)
+    eng = engine.make_batched_step(
+        model, engine.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terrain=terr,
+        device=dev)
+    i = torch.arange(N_ENVS)
+    spots = torch.tensor([list(terr.patch_origin(r, c)) for r, c in zip(
+        (i // terr.cols % terr.rows).tolist(), (i % terr.cols).tolist())],
+        dtype=torch.float32, device=dev)
+    s = engine.make_batched_init(model, N_ENVS, dev)
+    qpos = s.qpos.clone()
+    qpos[:, 0:2] = spots
+    qpos[:, 2] = terrain.height_at(terr, spots) + 0.30
+    target = torch.as_tensor(model.default_qpos_joints, dtype=torch.float32,
+                             device=dev).expand(N_ENVS, model.nj)
+    mu = torch.ones(N_ENVS, device=dev)
+    return eng, s._replace(qpos=qpos), target, mu, spots
+
+
+def train_phase(phase, task, kernel, train) -> int:
+    """Two PPO iterations of ``task`` at N_ENVS with ``kernel``'s count
+    set to 0 before and read after; fails unless it launched 2 x 24 x 4
+    times and every metric is finite. Returns (launches, metrics of each
+    iteration)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    history = train.main(["--task", task, "--num_envs", str(N_ENVS),
+                          "--max_iterations", str(PPO_ITERS),
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    expected = PPO_ITERS * 24 * env_decimation()
+    for i, m in enumerate(history, 1):
+        log(phase, f"iter {i}: {m['Perf/iter_seconds']:.3f} s, "
+                   f"{m['Perf/env_steps_per_sec']:.0f} env-steps/s, loss "
+                   f"{m['Loss/mean_surrogate_loss']:.4f}, v_loss "
+                   f"{m['Loss/mean_v_loss']:.4f}, rew/step "
+                   f"{m['Train/mean_reward_per_step']:.5f}, ep_len "
+                   f"{m['Episode/length']:.1f}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"non-finite metrics at iteration {i}")
+    log(phase, f"max memory allocated "
+               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+               f"launches {launches} (expected {expected})")
+    if launches != expected:
+        raise RuntimeError("the main path did not run through the kernel")
+    return launches, history
 
 
 def main() -> int:
@@ -128,6 +244,7 @@ def main() -> int:
     from cat_tpu_torch.envs.env import CommandsCfg, EnvCfg, EventsCfg, NoiseCfg
     from cat_tpu_torch.rl.convert import actor_from_bundle
     from cat_tpu_torch.rl.networks import ActorCritic
+    from cat_tpu_torch.sim import terrain
     from cat_tpu_torch.sim.maths import quat_rotate_inv
     from cat_tpu_torch.tasks import solo12_flat
 
@@ -141,11 +258,13 @@ def main() -> int:
                f"CUDA {torch.version.cuda} | {torch.cuda.device_count()} card(s)")
 
     phase = "build"
-    built = pgs.KERNEL.load()
-    log(phase, f"{built.path.name} in {built.seconds:.1f}s")
-    for line in built.log.splitlines():
-        if "ptxas" in line or "spill" in line:
-            log(phase, line.strip())
+    with ThreadPoolExecutor(2) as pool:   # one nvcc a source, together
+        builds = list(pool.map(lambda k: k.load(), (pgs.KERNEL, pgs.GS_KERNEL)))
+    for built in builds:
+        log(phase, f"{built.path.name} in {built.seconds:.1f}s")
+        for line in built.log.splitlines():
+            if "ptxas" in line or "spill" in line:
+                log(phase, line.strip())
 
     phase = "kernel"
     env = solo12_flat.make_env(N_ENVS, device=dev)
@@ -160,60 +279,108 @@ def main() -> int:
     _, physical = env.engine.contact_problem(es.sim, target, es.mu)
     physical = tuple(t.contiguous() for t in physical)
     problems = {
-        "physical": physical,
-        "random": random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
+        "physical": (physical, kw),
+        "random": (random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
+                   kw),
     }
-    max_abs_err = 0.0
-    for name, ops in problems.items():
-        lam_k = pgs.KERNEL(*ops, **kw)
-        torch.cuda.synchronize()
-        lam_p = pgs.pgs_bj_reference(*ops, **kw)
-        err = (lam_k - lam_p).abs()
-        scale = lam_p.abs().max().item()
-        bad = int((err > ATOL_REL * scale + RTOL * lam_p.abs()).sum())
-        log(phase, f"{name}: max|lam| {scale:.4g}, max abs err "
-                   f"{err.max().item():.3g}, max rel err "
-                   f"{(err.max().item() / max(scale, 1e-30)):.3g}; "
-                   f"{bad} of {err.numel()} outside tolerance "
-                   f"(rtol {RTOL}, atol {ATOL_REL} x max|lam|)")
-        if bad or not torch.isfinite(lam_k).all():
-            raise RuntimeError(f"kernel disagrees with its plain version ({name})")
-        max_abs_err = max(max_abs_err, err.max().item())
-    ms = cuda_ms(lambda: pgs.KERNEL(*physical, **kw), 50)
-    plain_ms = cuda_ms(lambda: pgs.pgs_bj_reference(*physical, **kw), 5)
+    bj = dict(name="pgs_bj", source="cat_tpu_torch/ops/csrc/pgs_bj.cu",
+              replaces="cat_tpu/ops/pgs_pallas.py:419")
+    bj["max_abs_err"] = check_kernel(phase, pgs.KERNEL, pgs.pgs_bj_reference,
+                                     problems)
+    bj["ms"] = cuda_ms(lambda: pgs.KERNEL(*physical, **kw), 50)
+    bj["plain_ms"] = cuda_ms(lambda: pgs.pgs_bj_reference(*physical, **kw), 5)
     byts, flops = pgs_counts(model, model.ancestor_mask(), N_ENVS,
                              kw["iterations"])
-    t_bytes, t_ops = byts / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(phase, f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-               f"{bound_ms:.4f} ms by {bound_by} ({byts / 1e6:.1f} MB, "
-               f"{flops / 1e9:.3f} GFLOP) at N={N_ENVS}")
+    bj["bound_ms"], bj["bound_by"] = bound(byts, flops)
+    log(phase, f"kernel {bj['ms']:.4f} ms, plain {bj['plain_ms']:.3f} ms, "
+               f"bound {bj['bound_ms']:.4f} ms by {bj['bound_by']} "
+               f"({byts / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) at N={N_ENVS}")
     del env, es, physical, problems
 
+    phase = "kernel-gs"
+    eng, s, target, mu, _ = raw_engine_on_rough(dev)
+    for _ in range(5):
+        s = eng(s, target, mu)
+    _, physical = eng.contact_problem(s, target, mu)
+    physical = tuple(t.contiguous() for t in physical)
+    kw = eng.pgs_kwargs
+    active = physical[4]
+    log(phase, f"raw engine solve: {eng.solve.__name__}, {kw['iterations']} "
+               f"sweeps; active contacts per env {active.sum(1).mean():.2f} "
+               f"of {model.ncand} (min {active.sum(1).min():.0f}, max "
+               f"{active.sum(1).max():.0f})")
+    if eng.solve is not pgs.pgs_gs:
+        raise RuntimeError("the raw engine's default solve is not pgs_gs")
+    # the random rows are dense: every dof enters their assembly
+    problems = {
+        "physical": (physical, kw),
+        "random": (random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
+                   dict(kw, row_dofs=None)),
+    }
+    gs = dict(name="pgs_gs", source="cat_tpu_torch/ops/csrc/pgs_gs.cu",
+              replaces="cat_tpu/ops/pgs_pallas.py:103")
+    gs["max_abs_err"] = check_kernel(phase, pgs.GS_KERNEL, pgs.pgs_gs_reference,
+                                     problems)
+    gs["ms"] = cuda_ms(lambda: pgs.GS_KERNEL(*physical, **kw), 50)
+    gs["plain_ms"] = cuda_ms(lambda: pgs.pgs_gs_reference(*physical, **kw), 3)
+    # the same launch with no sweep: loads, assembly and warm start alone
+    no_sweep_ms = cuda_ms(lambda: pgs.GS_KERNEL(
+        *physical, **dict(kw, iterations=0)), 50)
+    byts, flops = pgs_counts(model, model.ancestor_mask(), N_ENVS,
+                             kw["iterations"], active=active)
+    gs["bound_ms"], gs["bound_by"] = bound(byts, flops)
+    _, flops_all = pgs_counts(model, model.ancestor_mask(), N_ENVS,
+                              kw["iterations"], active=torch.ones_like(active))
+    log(phase, f"kernel {gs['ms']:.4f} ms ({no_sweep_ms:.4f} ms of it with "
+               f"no sweep: loads, assembly, warm start), plain "
+               f"{gs['plain_ms']:.3f} ms, "
+               f"bound {gs['bound_ms']:.4f} ms by {gs['bound_by']} "
+               f"({byts / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP for the active "
+               f"contacts; {flops_all / 1e9:.3f} GFLOP, "
+               f"{bound(byts, flops_all)[0]:.4f} ms, counting every contact) "
+               f"at N={N_ENVS}")
+    del eng, s, physical, problems, active
+
     phase = "train"
-    torch.cuda.reset_peak_memory_stats()
-    pgs.KERNEL.launches = 0
-    history = train.main(["--task", "Solo12-CaT-Flat-v0", "--num_envs",
-                          str(N_ENVS), "--max_iterations", str(PPO_ITERS),
-                          "--device", "cuda"])
+    launches_flat, _ = train_phase(phase, "Solo12-CaT-Flat-v0", pgs.KERNEL,
+                                   train)
+
+    phase = "engine-gs"
+    eng, s, target, mu, spots = raw_engine_on_rough(dev)
+    pgs.GS_KERNEL.launches = 0
     torch.cuda.synchronize()
-    launches = pgs.KERNEL.launches
-    expected = PPO_ITERS * 24 * env_decimation()
-    for i, m in enumerate(history, 1):
-        log(phase, f"iter {i}: {m['Perf/iter_seconds']:.3f} s, "
-                   f"{m['Perf/env_steps_per_sec']:.0f} env-steps/s, loss "
-                   f"{m['Loss/mean_surrogate_loss']:.4f}, v_loss "
-                   f"{m['Loss/mean_v_loss']:.4f}, rew/step "
-                   f"{m['Train/mean_reward_per_step']:.5f}, ep_len "
-                   f"{m['Episode/length']:.1f}")
-        if not all(math.isfinite(v) for v in m.values()):
-            raise RuntimeError(f"non-finite metrics at iteration {i}")
-    log(phase, f"max memory allocated "
-               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
-               f"pgs_bj launches {launches} (expected {expected})")
-    if launches != expected:
-        raise RuntimeError("the main path did not run through the kernel")
+    t0 = time.perf_counter()
+    for _ in range(RAW_STEPS):
+        s = eng(s, target, mu)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / RAW_STEPS * 1e3
+    gs["launches"] = pgs.GS_KERNEL.launches
+    expected = RAW_STEPS * eng.params.decimation
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in s)
+    rel_z = s.qpos[:, 2] - terrain.height_at(eng.terrain, s.qpos[:, 0:2])
+    drift = torch.linalg.vector_norm(s.qpos[:, 0:2] - spots, dim=1)
+    standing = int(((rel_z > 0.12) & (rel_z < 0.40) & (drift < 0.5)).sum())
+    log(phase, f"{RAW_STEPS} control steps x {N_ENVS} envs: "
+               f"{step_ms:.2f} ms a control step; pgs_gs launches "
+               f"{gs['launches']} (expected {expected}); z - h in "
+               f"[{rel_z.min():.4f}, {rel_z.max():.4f}] m, drift max "
+               f"{drift.max():.4f} m; {standing} of {N_ENVS} standing")
+    if gs["launches"] != expected:
+        raise RuntimeError("the raw engine did not run through pgs_gs")
+    if not finite or standing != N_ENVS:
+        raise RuntimeError("robots fell, tunnelled or drifted on the pads")
+    del eng, s
+
+    phase = "train-rough"
+    bj["launches"], history = train_phase(phase, "Solo12-CaT-Rough-v0",
+                                          pgs.KERNEL, train)
+    levels = [m["Curriculum/terrain_levels"] for m in history
+              if "Curriculum/terrain_levels" in m]
+    log(phase, f"Curriculum/terrain_levels {levels}; flat training launched "
+               f"pgs_bj {launches_flat} times, rough training "
+               f"{bj['launches']}")
+    if len(levels) != len(history) or not all(0.0 <= v <= 9.0 for v in levels):
+        raise RuntimeError("Curriculum/terrain_levels missing or out of [0, 9]")
 
     phase = "play"
     bundle_path = repo / "runs" / "solo12_flat_2000it" / "policy_params.npz"
@@ -258,14 +425,11 @@ def main() -> int:
     if not vx_mean >= 0.5 * PLAY_VX:
         raise RuntimeError("the JAX-trained policy does not walk in the port")
 
-    print(json.dumps({"kernels": [{
-        "name": "pgs_bj", "route": "cuda",
-        "source": "cat_tpu_torch/ops/csrc/pgs_bj.cu",
-        "replaces": "cat_tpu/ops/pgs_pallas.py:419",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-    }]}), flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {k: dict(row, route="cuda", library_ms=None)[k] for k in keys}
+        for row in (bj, gs)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

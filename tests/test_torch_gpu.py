@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on a card.
+"""The hand-written CUDA kernels (block-Jacobi and serial Gauss-Seidel PGS)
+against their plain PyTorch versions, on a card.
 
-These tests need a CUDA card and skip without one (the kernel has no CPU
+These tests need a CUDA card and skip without one (the kernels have no CPU
 mode). They import nothing of JAX, so they run on a machine without it:
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -17,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from cat_tpu_torch.models.solo12 import solo12_model
+from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP, solo12_model
 from cat_tpu_torch.ops import pgs
-from cat_tpu_torch.sim import engine
+from cat_tpu_torch.sim import engine, terrain
 from cat_tpu_torch.sim.solver import SolverParams
 
 RTOL, ATOL_REL = 2e-4, 2e-5
@@ -157,6 +158,127 @@ def test_control_step_on_the_card_matches_the_cpu(cuda):
         states[str(dev)] = s
     assert pgs.KERNEL.launches == launches + 40
     a, b = states["cpu"], states[str(cuda)]
+    np.testing.assert_allclose(b.qpos.cpu().numpy(), a.qpos.numpy(), atol=2e-3)
+    np.testing.assert_allclose(b.qvel.cpu().numpy(), a.qvel.numpy(), atol=2e-2)
+    np.testing.assert_allclose(b.forces.cpu().numpy(), a.forces.numpy(),
+                               rtol=0.05, atol=0.05)
+
+
+# ---------------------------------------------------------------------------
+# the serial Gauss-Seidel kernel (pgs_gs.cu)
+# ---------------------------------------------------------------------------
+
+GS = dict(iterations=5, cfm=1e-4)
+
+
+def _rough_raw_engine(device, n, spread=1.2, dz=0.3, joints=0.2):
+    """The raw engine (default SolverParams: GS-5) on a rough terrain with n
+    Solo12s around the patch centres (within +-spread m), dz above the
+    surface, joints perturbed by up to +-joints rad."""
+    model = solo12_model()
+    terr = terrain.generate_rough(rows=4, cols=4, patch_m=4.0, seed=0)
+    step = engine.make_batched_step(
+        model, engine.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terr, device)
+    rng = np.random.default_rng(4)
+    xy = np.stack([terr.patch_origin(i % 4, i // 4 % 4) for i in range(n)])
+    xy = (xy + rng.uniform(-spread, spread, (n, 2))).astype(np.float32)
+    qpos = np.tile(model.default_qpos(), (n, 1)).astype(np.float32)
+    qpos[:, 0:2] = xy
+    qpos[:, 2] = terrain.height_at(terr, torch.from_numpy(xy)).numpy() + dz
+    qpos[:, 7:] += rng.uniform(-joints, joints, (n, model.nj)).astype(np.float32)
+    s = engine.make_batched_init(model, n, device)._replace(
+        qpos=torch.from_numpy(qpos).to(device))
+    return model, step, s
+
+
+def _gs_physical_problem(device, n=256):
+    model, step, s = _rough_raw_engine(device, n)
+    target = torch.as_tensor(model.default_qpos_joints, dtype=torch.float32,
+                             device=device).expand(n, model.nj)
+    mu = torch.full((n,), 0.9, device=device)
+    for _ in range(5):
+        s = step(s, target, mu)
+    _, ops = step.contact_problem(s, target, mu)
+    return ops, step.pgs_kwargs
+
+
+@pytest.mark.gpu
+def test_gs_kernel_matches_plain_on_physical_problems(cuda):
+    ops, kw = _gs_physical_problem(cuda)
+    assert kw["row_dofs"] is not None and float(ops[4].sum()) > 0
+    launches = pgs.GS_KERNEL.launches
+    lam = pgs.pgs_gs(*ops, **kw)
+    torch.cuda.synchronize()
+    assert pgs.GS_KERNEL.launches == launches + 1
+    _check(lam, pgs.pgs_gs_reference(*ops, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc,nv,n", [(6, 10, 37), (36, 18, 1000), (64, 18, 64)])
+def test_gs_kernel_matches_plain_on_random_problems(cuda, nc, nv, n):
+    ops = tuple(t.to(cuda) for t in _random_problem(n, nc, nv, seed=nc + 1))
+    lam = pgs.pgs_gs(*ops, **GS)
+    torch.cuda.synchronize()
+    _check(lam, pgs.pgs_gs_reference(*ops, **GS))
+    # a sparse dof table the dense random rows do not have is not exact:
+    # the kernel must take the table it is given
+    rows = tuple(tuple(range(nv - 1)) for _ in range(3 * nc))
+    lam_cut = pgs.pgs_gs(*ops, row_dofs=rows, **GS)
+    E_cut = ops[0].clone()
+    E_cut[..., nv - 1] = 0.0
+    _check(lam_cut, pgs.pgs_gs_reference(E_cut, *ops[1:], **GS))
+
+
+@pytest.mark.gpu
+def test_gs_kernel_rejects_bad_operands(cuda):
+    ops = [t.to(cuda) for t in _random_problem(8, 36, 18, seed=1)]
+    bad = list(ops)
+    bad[0] = ops[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pgs.GS_KERNEL(*bad, **GS)
+    bad = list(ops)
+    bad[5] = ops[5].double()
+    with pytest.raises(TypeError):
+        pgs.GS_KERNEL(*bad, **GS)
+    bad = list(ops)
+    bad[3] = ops[3].cpu()
+    with pytest.raises(ValueError, match="is on cpu"):
+        pgs.GS_KERNEL(*bad, **GS)
+    with pytest.raises(ValueError, match="row_dofs"):
+        pgs.GS_KERNEL(*ops, row_dofs=((0, 18),) * 108, **GS)
+    too_many = [t.to(cuda) for t in _random_problem(2, 65, 18, seed=2)]
+    with pytest.raises(ValueError, match="contacts"):
+        pgs.GS_KERNEL(*too_many, **GS)
+
+
+@pytest.mark.gpu
+def test_raw_engine_on_rough_terrain_on_the_card_matches_the_cpu(cuda):
+    """Ten raw-engine control steps (GS-5) on rough terrain through the
+    kernel against the same steps through the plain version on the CPU;
+    the kernel runs 4 times a step.
+
+    The robots start standing on the flat spawn pads (feet on the ground,
+    the height a drop settles at), so the contact set holds. At a landing
+    the step is discontinuous in the state (a contact switches on at
+    phi = 0): there ulp-level differences of the state move joint
+    velocities by more than these bounds on one device alone
+    (tests/test_torch_rough.py::test_one_step_sensitivity_to_ulp_changes),
+    and no two float orders of the same physics agree to them."""
+    n = 64
+    states, launches = {}, pgs.GS_KERNEL.launches
+    for dev in ("cpu", cuda):
+        model, step, s = _rough_raw_engine(dev, n, spread=0.15, dz=0.2892,
+                                           joints=0.0)
+        mu = torch.full((n,), 0.9, device=dev)
+        for i in range(10):
+            target = torch.from_numpy(
+                np.tile(model.default_qpos_joints, (n, 1)).astype(np.float32)
+                + np.float32(0.1 * np.sin(0.3 * i))).to(dev)
+            s = step(s, target, mu)
+        states[str(dev)] = s
+    assert pgs.GS_KERNEL.launches == launches + 40
+    a, b = states["cpu"], states[str(cuda)]
+    assert float(a.lam.abs().max()) > 1e-3          # on the ground
     np.testing.assert_allclose(b.qpos.cpu().numpy(), a.qpos.numpy(), atol=2e-3)
     np.testing.assert_allclose(b.qvel.cpu().numpy(), a.qvel.numpy(), atol=2e-2)
     np.testing.assert_allclose(b.forces.cpu().numpy(), a.forces.numpy(),
