@@ -203,7 +203,7 @@ class CatEnv:
             resolve_names(list(illegal_contact_bodies), model.report_names),
             dtype=torch.long, device=dev)
         self.engine = engine_mod.make_batched_step(
-            model, engine_params(cfg), cfg.terrain, dev)
+            model, engine_params(cfg), terrain=cfg.terrain, device=dev)
         self._qj_lo = torch.as_tensor(model.joint_limit_lower,
                                       dtype=torch.float32, device=dev)
         self._qj_hi = torch.as_tensor(model.joint_limit_upper,

@@ -1,8 +1,9 @@
 """Build a CUDA source into a shared library with plain nvcc, for ctypes.
 
 The library is built at first use into ``build/cat_tpu_torch/`` beside the
-package and named by a hash of the source and the flags, so a changed
-source builds anew and an unchanged one is reused. nvcc writes to a
+package and named by a hash of the source, every header (``*.cuh``) beside
+it and the flags, so a changed source or header builds anew and an
+unchanged one is reused. nvcc writes to a
 temporary name that ``os.replace`` moves into place: there is no lock file
 to wait on, and a build cut off half way leaves nothing that looks done.
 """
@@ -43,18 +44,22 @@ def find_nvcc() -> str:
 
 
 def build_shared_library(source: Path) -> Built:
-    """Compile ``source`` (a .cu file with an extern "C" interface)."""
+    """Compile ``source`` (a .cu file with an extern "C" interface; its
+    headers sit beside it)."""
     source = Path(source)
-    key = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    key = digest.hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}-{key}.so"
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():
         return Built(out, log_path.read_text(), 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(source.parent), "-o", str(tmp),
+           str(source)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,

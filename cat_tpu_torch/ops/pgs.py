@@ -13,6 +13,11 @@ Layout: envs LEADING and contiguous, E (N, 3nc, nv), W = M^-1 E^T
 (N, nv, 3nc), b / lam0 / result (N, 3nc) interleaved (t1, t2, n) per
 contact, bias / active (N, nc), mu (N,).
 
+Both kernels solve in the space of the dofs, one warp per env, and share
+``csrc/pgs_vspace.cuh``: they never form the Delassus operator A = E W
+that the plain versions (and the TPU kernels) assemble, and they skip the
+contacts that are not active; only the summation order differs.
+
 ``pgs_bj`` and ``pgs_gs`` dispatch on the tensors' device: on a CUDA tensor
 they launch the kernel (built by plain nvcc and bound with ctypes) or
 raise; on a CPU tensor they run the plain version. There is no fallback
@@ -34,7 +39,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "pgs_bj.cu"
 GS_SOURCE = CSRC / "pgs_gs.cu"
 MAX_CONTACTS = 64
-MAX_SMEM_BYTES = 232448  # opt-in shared memory of one block on Hopper
+MAX_DOFS = 32            # a lane of the warp owns each dof
+WARPS_A_BLOCK = (1, 2, 4)
 
 
 def contact_row_dofs(model, anc_mask) -> tuple:
@@ -135,7 +141,7 @@ def pgs_bj_reference(
 def _check_operands(E, W, b, bias, active, mu, lam0) -> Tuple[int, int, int]:
     """The checks both kernels make before a launch: CUDA float32
     contiguous operands on E's device, of the shapes E implies, with
-    1..MAX_CONTACTS contacts. Returns (N, nc, nv)."""
+    1..MAX_CONTACTS contacts and 1..MAX_DOFS dofs. Returns (N, nc, nv)."""
     n, n3, nv = E.shape
     nc = n3 // 3
     shapes = {"E": (E, (n, n3, nv)), "W": (W, (n, nv, n3)),
@@ -144,6 +150,9 @@ def _check_operands(E, W, b, bias, active, mu, lam0) -> Tuple[int, int, int]:
               "lam0": (lam0, (n, n3))}
     if n3 % 3 or not 0 < nc <= MAX_CONTACTS:
         raise ValueError(f"3nc={n3} rows: need 1..{MAX_CONTACTS} contacts")
+    if not 0 < nv <= MAX_DOFS:
+        raise ValueError(f"nv={nv} dofs: need 1..{MAX_DOFS} (a lane of the "
+                         "warp owns each dof)")
     for name, (t, shape) in shapes.items():
         if t.device != E.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, E on {E.device}")
@@ -164,70 +173,142 @@ def _device_and_stream(t: torch.Tensor):
     return index, torch.cuda.current_stream(t.device).cuda_stream
 
 
-class PgsBjKernel:
-    """ctypes binding of ``csrc/pgs_bj.cu``.
+class _VspaceKernel:
+    """ctypes binding of one kernel built on ``csrc/pgs_vspace.cuh``,
+    ``csrc/<prefix>.cu``.
 
     ``launches`` counts the kernel launches this wrapper made; nothing
     else changes it. The library is built at the first launch (or by
-    ``load``), and the contact plan is cached on the device per plan.
+    ``load``). Once a device, the kernel is allowed all the shared memory
+    a block may opt into; once a shape, the occupancy calculator picks the
+    warps a block (those that fit the most warps on an SM) and the
+    persistent grid.
     """
+
+    prefix = ""
+    source: Path
+    launch_argtypes: list = []
 
     def __init__(self):
         self.launches = 0
         self.built: Optional[build.Built] = None
         self._lib = None
-        self._plans = {}
+        self._sms = {}        # device index -> SM count
+        self._configs = {}    # (device, nc, nv) -> (blocks an SM, warps)
+
+    def _fn(self, name):
+        return getattr(self._lib, f"{self.prefix}_{name}")
 
     def load(self) -> build.Built:
         if self._lib is None:
-            self.built = build.build_shared_library(SOURCE)
-            lib = ctypes.CDLL(str(self.built.path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pgs_bj_launch.argtypes = (
-                [p] * 10 + [i] * 5 + [ctypes.c_float, ctypes.c_float, i, p])
-            lib.pgs_bj_launch.restype = i
-            lib.pgs_bj_smem_bytes.argtypes = [i, i]
-            lib.pgs_bj_smem_bytes.restype = ctypes.c_size_t
-            lib.pgs_bj_error_string.argtypes = [i]
-            lib.pgs_bj_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self.built = build.build_shared_library(self.source)
+            self._lib = ctypes.CDLL(str(self.built.path))
+            i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+            for name, args, res in (
+                    ("launch", self.launch_argtypes, i),
+                    ("warp_bytes", [i, i], ctypes.c_size_t),
+                    ("error_string", [i], ctypes.c_char_p),
+                    ("setup", [i, pi], i),
+                    ("occupancy", [i, i, ctypes.c_size_t, pi], i)):
+                self._fn(name).argtypes = args
+                self._fn(name).restype = res
         return self.built
 
-    def _plan(self, device, contact_perm, blocks):
-        key = (str(device), tuple(contact_perm), tuple(blocks))
-        if key not in self._plans:
-            self._plans[key] = (
-                torch.tensor(list(contact_perm), dtype=torch.int32,
+    def _raise_on(self, err: int, what: str):
+        if err != 0:
+            raise RuntimeError(f"{self.prefix} {what} failed: "
+                               + self._fn("error_string")(err).decode())
+
+    def _config(self, device: int, nc: int, nv: int, n: int):
+        """(grid, warps a block) of a launch over n envs."""
+        key = (device, nc, nv)
+        if key not in self._configs:
+            if device not in self._sms:
+                sms = ctypes.c_int()
+                self._raise_on(self._fn("setup")(device, ctypes.byref(sms)),
+                               "setup")
+                self._sms[device] = sms.value
+            per_warp = self._fn("warp_bytes")(nc, nv)
+            best = (0, 0)
+            for warps in WARPS_A_BLOCK:
+                blocks = ctypes.c_int()
+                self._raise_on(self._fn("occupancy")(
+                    device, warps, warps * per_warp, ctypes.byref(blocks)),
+                    "occupancy")
+                if blocks.value and blocks.value * warps >= best[0] * best[1]:
+                    best = (blocks.value, warps)
+            if not best[0]:
+                raise ValueError(f"nc={nc}, nv={nv} needs {per_warp} B of "
+                                 "shared memory a warp: more than an SM has")
+            self._configs[key] = best
+        blocks, warps = self._configs[key]
+        return min(-(-n // warps), blocks * self._sms[device]), warps
+
+    def _launch(self, E, W, n, nc, nv, args):
+        """Launch over the operand pointers and scalars ``args`` on E's
+        device and current stream; count it."""
+        self.load()
+        device, stream = _device_and_stream(E)
+        grid, warps = self._config(device, nc, nv, n)
+        bulk = int(E.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0
+                   and 12 * nc * nv % 16 == 0)
+        launch = self._fn("launch")
+        if device == torch.cuda.current_device():
+            err = launch(*args, grid, warps, bulk, stream)
+        else:
+            with torch.cuda.device(device):
+                err = launch(*args, grid, warps, bulk, stream)
+        self._raise_on(err, "kernel launch")
+        self.launches += 1
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class PgsBjKernel(_VspaceKernel):
+    """``csrc/pgs_bj.cu``: block-Jacobi sweeps over the contact blocks of a
+    plan; the plan (contact permutation, blocks) is cached on the device."""
+
+    prefix = "pgs_bj"
+    source = SOURCE
+    # E W b bias active mu lam0 cperm blocks out, n nc nv nblocks iterations,
+    # cfm omega, grid warps bulk, stream
+    launch_argtypes = [_P] * 10 + [_I] * 5 + [_F, _F] + [_I] * 3 + [_P]
+
+    def __init__(self):
+        super().__init__()
+        self._plans = {}
+
+    def _plan(self, device, nc: int, contact_perm, blocks):
+        """The plan as int32 device tensors (cperm (nc,), blocks flattened),
+        checked once and cached by the identity of the plan's objects (the
+        engine passes the same ones every substep)."""
+        key = (str(device), nc, id(contact_perm), id(blocks))
+        hit = self._plans.get(key)
+        if hit is not None and hit[0] is contact_perm and hit[1] is blocks:
+            return hit[2]
+        if sorted(contact_perm) != list(range(nc)):
+            raise ValueError("contact_perm is not a permutation of the contacts")
+        if (sum(g for _, g in blocks) != nc
+                or any(i0 < 0 or g < 1 or i0 + g > nc for i0, g in blocks)):
+            raise ValueError("blocks do not cover the contacts")
+        plan = (torch.tensor(list(contact_perm), dtype=torch.int32,
                              device=device),
                 torch.tensor([list(bk) for bk in blocks], dtype=torch.int32,
-                             device=device).reshape(-1),
-            )
-        return self._plans[key]
+                             device=device).reshape(-1))
+        self._plans[key] = (contact_perm, blocks, plan)
+        return plan
 
     def __call__(self, E, W, b, bias, active, mu, lam0, *, iterations: int,
                  cfm: float, omega: float, contact_perm, blocks) -> torch.Tensor:
         n, nc, nv = _check_operands(E, W, b, bias, active, mu, lam0)
-        if sorted(contact_perm) != list(range(nc)):
-            raise ValueError("contact_perm is not a permutation of the contacts")
-        if sum(g for _, g in blocks) != nc:
-            raise ValueError("blocks do not cover the contacts")
-        self.load()
-        smem = self._lib.pgs_bj_smem_bytes(nc, nv)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"nc={nc}, nv={nv} needs {smem} B of shared memory")
-        cperm, blk = self._plan(E.device, contact_perm, blocks)
+        cperm, blk = self._plan(E.device, nc, contact_perm, blocks)
         out = torch.empty_like(lam0)
-        err = self._lib.pgs_bj_launch(
+        self._launch(E, W, n, nc, nv, (
             E.data_ptr(), W.data_ptr(), b.data_ptr(), bias.data_ptr(),
             active.data_ptr(), mu.data_ptr(), lam0.data_ptr(),
             cperm.data_ptr(), blk.data_ptr(), out.data_ptr(),
-            n, nc, nv, len(blocks), iterations, cfm, omega,
-            *_device_and_stream(E),
-        )
-        if err != 0:
-            raise RuntimeError("pgs_bj kernel launch failed: "
-                               + self._lib.pgs_bj_error_string(err).decode())
-        self.launches += 1
+            n, nc, nv, len(blocks), iterations, cfm, omega))
         return out
 
 
@@ -289,76 +370,53 @@ def pgs_gs_reference(
     return lam
 
 
-class PgsGsKernel:
-    """ctypes binding of ``csrc/pgs_gs.cu``.
+class PgsGsKernel(_VspaceKernel):
+    """``csrc/pgs_gs.cu``: the serial Gauss-Seidel sweep; the rows' dof
+    masks are cached on the device."""
 
-    ``launches`` counts the kernel launches this wrapper made; nothing
-    else changes it. The library is built at the first launch (or by
-    ``load``); the table of nonzero dofs per row is cached on the device.
-    """
+    prefix = "pgs_gs"
+    source = GS_SOURCE
+    # E W b bias active mu lam0 masks out, n nc nv iterations, cfm,
+    # grid warps bulk, stream
+    launch_argtypes = [_P] * 9 + [_I] * 4 + [_F] + [_I] * 3 + [_P]
 
     def __init__(self):
-        self.launches = 0
-        self.built: Optional[build.Built] = None
-        self._lib = None
-        self._dofs = {}
+        super().__init__()
+        self._masks = {}
 
-    def load(self) -> build.Built:
-        if self._lib is None:
-            self.built = build.build_shared_library(GS_SOURCE)
-            lib = ctypes.CDLL(str(self.built.path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.pgs_gs_launch.argtypes = (
-                [p] * 10 + [i] * 4 + [ctypes.c_float, i, p])
-            lib.pgs_gs_launch.restype = i
-            lib.pgs_gs_smem_bytes.argtypes = [i, i]
-            lib.pgs_gs_smem_bytes.restype = ctypes.c_size_t
-            lib.pgs_gs_error_string.argtypes = [i]
-            lib.pgs_gs_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self.built
-
-    def _dof_table(self, device, n3: int, nv: int, row_dofs):
-        """(dofs (3nc, nv) int32, counts (3nc,) int32): row r of the
-        assembly sums over dofs[r, :counts[r]]; every dof when row_dofs is
-        None."""
-        rows = (tuple(tuple(range(nv)) for _ in range(n3)) if row_dofs is None
-                else tuple(tuple(int(k) for k in r) for r in row_dofs))
+    def _row_masks(self, device, n3: int, nv: int, row_dofs):
+        """(3nc,) int32: bit k of row r is set when dof k enters row r of
+        E (the kernel leaves the others out of its sums); None when
+        row_dofs is None (every dof). Checked once and cached by the
+        identity of row_dofs (the engine passes the same tuple every
+        substep)."""
+        if row_dofs is None:
+            return None
+        key = (str(device), n3, nv, id(row_dofs))
+        hit = self._masks.get(key)
+        if hit is not None and hit[0] is row_dofs:
+            return hit[1]
+        rows = tuple(tuple(int(k) for k in r) for r in row_dofs)
         if len(rows) != n3 or any(not r or min(r) < 0 or max(r) >= nv
                                   for r in rows):
             raise ValueError(f"row_dofs must give 1..{nv} dofs in [0, {nv}) "
                              f"for each of the {n3} rows")
-        key = (str(device), nv, rows)
-        if key not in self._dofs:
-            table = np.zeros((n3, nv), np.int32)
-            for r, ks in enumerate(rows):
-                table[r, :len(ks)] = ks
-            self._dofs[key] = (
-                torch.as_tensor(table, device=device),
-                torch.tensor([len(r) for r in rows], dtype=torch.int32,
-                             device=device),
-            )
-        return self._dofs[key]
+        bits = np.array([sum(1 << k for k in set(r)) for r in rows],
+                        dtype=np.uint32)
+        masks = torch.as_tensor(bits.view(np.int32), device=device)
+        self._masks[key] = (row_dofs, masks)
+        return masks
 
     def __call__(self, E, W, b, bias, active, mu, lam0, *, iterations: int,
                  cfm: float, row_dofs=None) -> torch.Tensor:
         n, nc, nv = _check_operands(E, W, b, bias, active, mu, lam0)
-        self.load()
-        smem = self._lib.pgs_gs_smem_bytes(nc, nv)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"nc={nc}, nv={nv} needs {smem} B of shared memory")
-        dofs, counts = self._dof_table(E.device, 3 * nc, nv, row_dofs)
+        masks = self._row_masks(E.device, 3 * nc, nv, row_dofs)
         out = torch.empty_like(lam0)
-        err = self._lib.pgs_gs_launch(
+        self._launch(E, W, n, nc, nv, (
             E.data_ptr(), W.data_ptr(), b.data_ptr(), bias.data_ptr(),
             active.data_ptr(), mu.data_ptr(), lam0.data_ptr(),
-            dofs.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            n, nc, nv, iterations, cfm, *_device_and_stream(E),
-        )
-        if err != 0:
-            raise RuntimeError("pgs_gs kernel launch failed: "
-                               + self._lib.pgs_gs_error_string(err).decode())
-        self.launches += 1
+            None if masks is None else masks.data_ptr(), out.data_ptr(),
+            n, nc, nv, iterations, cfm))
         return out
 
 

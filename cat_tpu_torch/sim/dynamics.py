@@ -179,10 +179,11 @@ def fk(mt: ModelTensors, qpos: torch.Tensor, qvel: torch.Tensor,
     com = mt.com.expand(n, nb, 3)
     if com_offset is not None:
         com = com + com_offset
-    # joint d sits at the origin of body d+1
+    # joint d sits at the origin of body d+1 (a joint-less body has none)
+    a_w = torch.stack(a_w, dim=1) if a_w else qpos.new_zeros(n, 0, 3)
     return Kin(R=R, o=o, omega=torch.stack(om, dim=1),
                v_o=torch.stack(v, dim=1), x_com=o + _mv(R, com),
-               a_w=torch.stack(a_w, dim=1), o_j=o[:, 1:])
+               a_w=a_w, o_j=o[:, 1:])
 
 
 class Jacs(NamedTuple):
@@ -287,6 +288,32 @@ def cholesky_factor(M: torch.Tensor) -> torch.Tensor:
         d = torch.rsqrt(torch.clamp(c[:, j], min=1e-12))
         cols.append(c * d[:, None] * (idx >= j).to(M.dtype))
     return torch.stack(cols, dim=2)
+
+
+def cholesky_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) X = B by forward and back substitution unrolled over
+    the n rows (cat_tpu/sim/dynamics.py:294). L (N, n, n) lower; B (N, n)
+    or (N, n, k)."""
+    n = L.shape[-1]
+    vec = B.dim() == 2
+    if vec:
+        B = B[..., None]
+    ys = []
+    for i in range(n):
+        acc = B[:, i]
+        if i:
+            acc = acc - torch.matmul(L[:, i, None, :i],
+                                     torch.stack(ys, dim=1))[:, 0]
+        ys.append(acc / L[:, i, i, None])
+    xs = [None] * n
+    for i in reversed(range(n)):
+        acc = ys[i]
+        if i < n - 1:
+            acc = acc - torch.matmul(L[:, None, i + 1:, i],
+                                     torch.stack(xs[i + 1:], dim=1))[:, 0]
+        xs[i] = acc / L[:, i, i, None]
+    X = torch.stack(xs, dim=1)
+    return X[..., 0] if vec else X
 
 
 def spd_inverse(M: torch.Tensor) -> torch.Tensor:

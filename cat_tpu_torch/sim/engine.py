@@ -89,9 +89,14 @@ def substep_pre(mt: dyn.ModelTensors, params: EngineParams, terrain: Terrain,
     I_w = dyn.world_inertias(mt, kin)
     M = dyn.mass_matrix(mt, jacs, I_w)
     C = dyn.bias_forces(mt, kin, jacs, I_w, qvel)
-    if not m.uniform_3dof_branches():
-        raise ValueError("the port's M^-1 needs legs of 3 contiguous dofs")
-    Minv = dyn.mass_matrix_inverse(M, n_branch=m.nj // 3)
+    # structured inverse for legs of 3 contiguous dofs, else the unrolled
+    # Cholesky (cat_tpu/sim/engine.py:121-127)
+    if m.uniform_3dof_branches():
+        Minv = dyn.mass_matrix_inverse(M, n_branch=m.nj // 3)
+    else:
+        eye = torch.eye(m.nv, dtype=M.dtype, device=M.device)
+        Minv = dyn.cholesky_solve(dyn.cholesky_factor(M),
+                                  eye.expand_as(M))
     v_free = qvel + h * torch.matmul(Minv, (tau - C)[..., None])[..., 0]
     con = detect_contacts(mt, terrain, kin)
     W = torch.matmul(Minv, con.E.transpose(1, 2))            # (N, nv, 3nc)
@@ -198,9 +203,19 @@ class Engine(NamedTuple):
         return s
 
 
+LAYOUTS = ("auto", "lanes", "vmap")
+
+
 def make_batched_step(model: RobotModel, params: EngineParams,
-                      terrain: Optional[Terrain] = None, device="cuda") -> Engine:
-    """The control step of ``model`` on ``device`` (an Engine)."""
+                      num_envs: int = 0, terrain: Optional[Terrain] = None,
+                      layout: str = "auto", *, device="cuda") -> Engine:
+    """The control step of ``model`` on ``device`` (an Engine), in the
+    reference's positional order (cat_tpu/sim/engine.py:296). ``num_envs``
+    is ignored, as the reference's batched step ignores it off the TPU;
+    ``layout`` takes the reference's values and changes nothing here: the
+    port has one layout, envs leading."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
     return Engine(dyn.ModelTensors.build(model, device), params,
                   terrain if terrain is not None else plane(),
                   *contact_solver(model, params.solver))

@@ -8,9 +8,14 @@ Phases, each printed with its elapsed seconds:
   build: both PGS kernels, ops/csrc/pgs_bj.cu and ops/csrc/pgs_gs.cu, one
      plain nvcc each, started together;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
-     N = 4096, on contact problems captured from the port's flat env and
-     on seeded random problems, with the kernel's time, the plain
-     version's time and the bound the card sets;
+     N = 4096, on contact problems captured from the port's flat env, on
+     seeded random problems and on the joint-less box's problems on a 25
+     degree slope (4 contacts, 6 dofs), with the active contacts an env,
+     the kernel's time on the physical problems (also with no sweep) and
+     on the box's, timed as CUDA-graph replays, so without the host's cost
+     of a call, and the time of eager calls one after another, the plain
+     version's time and the bound these inputs set, beside the bound of
+     the design it replaced;
   kernel-gs: the same for the serial Gauss-Seidel kernel, on problems
      captured from the raw engine on the production rough terrain;
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
@@ -81,6 +86,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """The card's time for one call of ``fn``: ``reps`` calls captured in
+    one CUDA graph and replayed, so the host's cost of a call (the
+    wrapper's Python, the launch) is left out of the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def random_problems(n, nc, nv, gen, device):
     """Seeded random contact problems: Delassus A = J M^-1 J^T with M SPD,
     mixed active and inactive contacts, a warm start."""
@@ -105,23 +136,37 @@ def random_problems(n, nc, nv, gen, device):
     return E, W, b, bias, active, mu, lam0
 
 
-def pgs_counts(model, anc, n, iterations, active=None):
-    """Bytes and f32 operations one solve needs at these shapes: every
-    operand read once and the result written once; the assembly over the
-    nonzero dofs only (contact_row_dofs), warm start, sweeps (the column
-    updates plus ~32 operations of projection per contact).
+def pgs_counts(active, nv, iterations, table_words):
+    """Bytes and f32 operations the solve needs for these inputs (its
+    (N, nc) ``active``), as the kernels compute it, in the space of the
+    dofs: E's rows and W's columns of the active contacts read once, the
+    other operands whole (b, bias, active, mu, lam0 read, the result
+    written, ``table_words`` of plan or dof table); per active contact the
+    five entries of A (5 dot products of nv terms), three divisions, its
+    part of the warm start (3 nv multiply-adds) and, in each sweep, three
+    rows of w (3 x 2nv), the projection (~32) and three rows of the update
+    (3 x 2nv). An inactive contact needs none of it."""
+    n, nc = active.shape
+    n_act = float((active != 0).sum())
+    byts = (4 * n_act * 2 * 3 * nv
+            + 4 * n * (3 * 3 * nc + 2 * nc + 1) + 4 * table_words)
+    flops = n_act * (5 * 2 * nv + 3 + 3 * 2 * nv
+                     + iterations * (3 * 2 * nv + 32 + 3 * 2 * nv))
+    return byts, flops
 
-    With ``active`` (the solve's (N, nc) activity) the counts are the
-    serial Gauss-Seidel sweep's: a contact inactive in an env holds no
-    impulse and needs no update, so the warm start and each of the
-    ``iterations`` sweeps count that env's active contacts only, each a
-    rank-3 update of the 3nc rows of w plus its projection."""
+
+def dense_counts(model, n, iterations, active=None):
+    """The counts of the design these kernels replaced:
+    every operand whole, the assembly of A over the nonzero dofs, the warm
+    start, and the sweeps' updates of all 3nc rows of w; over all contacts
+    (block-Jacobi) or the active ones (serial sweep)."""
     from cat_tpu_torch.ops import pgs
 
     nc, nv = model.ncand, model.nv
     n3 = 3 * nc
     byts = 4 * n * (2 * n3 * nv + 2 * n3 + n3 + 2 * nc + 1) + 4 * (nc + 8)
-    nnz = sum(len(r) for r in pgs.contact_row_dofs(model, anc))
+    nnz = sum(len(r) for r in pgs.contact_row_dofs(model,
+                                                   model.ancestor_mask()))
     if active is None:
         flops = n * (2 * n3 * nnz + 2 * n3 * n3
                      + iterations * (2 * n3 * n3 + 32 * nc))
@@ -162,6 +207,70 @@ def check_kernel(phase, kernel, plain, problems) -> float:
             raise RuntimeError(f"kernel disagrees with its plain version ({name})")
         max_abs_err = max(max_abs_err, err.max().item())
     return max_abs_err
+
+
+def kernel_numbers(phase, row, kernel, plain, problems, old_counts,
+                   table_words, plain_reps):
+    """Hold ``kernel`` against ``plain`` on ``problems``; then its time on
+    the card on the physical problem (also with no sweep, ``iterations=0``:
+    staging, the five entries of A a contact, the warm start) and on the
+    box problem, the time of eager calls one after another (which the
+    host's cost of a call bounds when it exceeds the kernel's), the plain
+    version's time and the bound for these inputs, beside the bound the
+    replaced design was held to. Fills ``row``."""
+    physical, kw = problems["physical"]
+    active = physical[4]
+    per_env = (active != 0).sum(1).float()
+    log(phase, f"physical problem: {per_env.mean():.2f} active contacts an "
+               f"env of {active.shape[1]} (min {per_env.min():.0f}, max "
+               f"{per_env.max():.0f}); box problem: "
+               f"{(problems['box'][0][4] != 0).sum(1).float().mean():.2f} "
+               f"of {problems['box'][0][4].shape[1]}")
+    row["max_abs_err"] = check_kernel(phase, kernel, plain, problems)
+    row["ms"] = graph_ms(lambda: kernel(*physical, **kw), 50)
+    box_ms = graph_ms(lambda: kernel(*problems["box"][0],
+                                     **problems["box"][1]), 50)
+    no_sweep_ms = graph_ms(lambda: kernel(*physical,
+                                          **dict(kw, iterations=0)), 50)
+    eager_ms = cuda_ms(lambda: kernel(*physical, **kw), 50)
+    row["plain_ms"] = cuda_ms(lambda: plain(*physical, **kw), plain_reps)
+    byts, flops = pgs_counts(active, physical[0].shape[2], kw["iterations"],
+                             table_words)
+    row["bound_ms"], row["bound_by"] = bound(byts, flops)
+    old_ms, old_by = bound(*old_counts)
+    log(phase, f"kernel {row['ms']:.4f} ms on the card (with no sweep "
+               f"{no_sweep_ms:.4f} ms; on the box problem {box_ms:.4f} ms); "
+               f"eager calls {eager_ms:.4f} ms apart; plain "
+               f"{row['plain_ms']:.3f} ms; bound "
+               f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+               f"({byts / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP: "
+               f"{row['bound_ms'] / row['ms'] * 100:.1f}% of it); the "
+               f"replaced design's bound on these inputs {old_ms:.4f} ms by "
+               f"{old_by} ({old_counts[0] / 1e6:.1f} MB, "
+               f"{old_counts[1] / 1e9:.3f} GFLOP) at N={N_ENVS}")
+
+
+def box_on_slope(dev):
+    """The raw engine (GS-5) of the joint-less box (4 contacts, 6 dofs, M^-1
+    by the unrolled Cholesky) on the 25 degree slope: N_ENVS boxes with
+    friction from 1e-3 (sliding) to 1.0 (sticking), captured after 10
+    control steps. Returns (model, operands, the solve's kwargs)."""
+    import torch
+
+    from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
+    from cat_tpu_torch.sim import engine
+
+    model = box_model()
+    eng = engine.make_batched_step(model, engine.EngineParams(),
+                                   terrain=slope_terrain(25.0), device=dev)
+    s = engine.make_batched_init(model, N_ENVS, dev)._replace(
+        qpos=torch.from_numpy(on_slope_qpos(25.0, N_ENVS)).to(dev))
+    mu = torch.linspace(1e-3, 1.0, N_ENVS, device=dev)
+    target = torch.zeros(N_ENVS, 0, device=dev)
+    for _ in range(10):
+        s = eng(s, target, mu)
+    _, ops = eng.contact_problem(s, target, mu)
+    return model, tuple(t.contiguous() for t in ops), eng.pgs_kwargs
 
 
 def raw_engine_on_rough(dev):
@@ -278,23 +387,20 @@ def main() -> int:
     target = env.default_joint_pos_task[env.m2t].expand(N_ENVS, model.nj)
     _, physical = env.engine.contact_problem(es.sim, target, es.mu)
     physical = tuple(t.contiguous() for t in physical)
+    box, box_ops, box_gs_kw = box_on_slope(dev)
+    perm, blocks = pgs.plan_contact_blocks(box, 2)
     problems = {
         "physical": (physical, kw),
         "random": (random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
                    kw),
+        "box": (box_ops, dict(kw, contact_perm=perm, blocks=blocks)),
     }
     bj = dict(name="pgs_bj", source="cat_tpu_torch/ops/csrc/pgs_bj.cu",
               replaces="cat_tpu/ops/pgs_pallas.py:419")
-    bj["max_abs_err"] = check_kernel(phase, pgs.KERNEL, pgs.pgs_bj_reference,
-                                     problems)
-    bj["ms"] = cuda_ms(lambda: pgs.KERNEL(*physical, **kw), 50)
-    bj["plain_ms"] = cuda_ms(lambda: pgs.pgs_bj_reference(*physical, **kw), 5)
-    byts, flops = pgs_counts(model, model.ancestor_mask(), N_ENVS,
-                             kw["iterations"])
-    bj["bound_ms"], bj["bound_by"] = bound(byts, flops)
-    log(phase, f"kernel {bj['ms']:.4f} ms, plain {bj['plain_ms']:.3f} ms, "
-               f"bound {bj['bound_ms']:.4f} ms by {bj['bound_by']} "
-               f"({byts / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) at N={N_ENVS}")
+    kernel_numbers(phase, bj, pgs.KERNEL, pgs.pgs_bj_reference, problems,
+                   dense_counts(model, N_ENVS, kw["iterations"]),
+                   table_words=model.ncand + 2 * len(kw["blocks"]),
+                   plain_reps=5)
     del env, es, physical, problems
 
     phase = "kernel-gs"
@@ -304,42 +410,24 @@ def main() -> int:
     _, physical = eng.contact_problem(s, target, mu)
     physical = tuple(t.contiguous() for t in physical)
     kw = eng.pgs_kwargs
-    active = physical[4]
     log(phase, f"raw engine solve: {eng.solve.__name__}, {kw['iterations']} "
-               f"sweeps; active contacts per env {active.sum(1).mean():.2f} "
-               f"of {model.ncand} (min {active.sum(1).min():.0f}, max "
-               f"{active.sum(1).max():.0f})")
+               "sweeps")
     if eng.solve is not pgs.pgs_gs:
         raise RuntimeError("the raw engine's default solve is not pgs_gs")
-    # the random rows are dense: every dof enters their assembly
+    # the random rows are dense: every dof enters them
     problems = {
         "physical": (physical, kw),
         "random": (random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
                    dict(kw, row_dofs=None)),
+        "box": (box_ops, box_gs_kw),
     }
     gs = dict(name="pgs_gs", source="cat_tpu_torch/ops/csrc/pgs_gs.cu",
               replaces="cat_tpu/ops/pgs_pallas.py:103")
-    gs["max_abs_err"] = check_kernel(phase, pgs.GS_KERNEL, pgs.pgs_gs_reference,
-                                     problems)
-    gs["ms"] = cuda_ms(lambda: pgs.GS_KERNEL(*physical, **kw), 50)
-    gs["plain_ms"] = cuda_ms(lambda: pgs.pgs_gs_reference(*physical, **kw), 3)
-    # the same launch with no sweep: loads, assembly and warm start alone
-    no_sweep_ms = cuda_ms(lambda: pgs.GS_KERNEL(
-        *physical, **dict(kw, iterations=0)), 50)
-    byts, flops = pgs_counts(model, model.ancestor_mask(), N_ENVS,
-                             kw["iterations"], active=active)
-    gs["bound_ms"], gs["bound_by"] = bound(byts, flops)
-    _, flops_all = pgs_counts(model, model.ancestor_mask(), N_ENVS,
-                              kw["iterations"], active=torch.ones_like(active))
-    log(phase, f"kernel {gs['ms']:.4f} ms ({no_sweep_ms:.4f} ms of it with "
-               f"no sweep: loads, assembly, warm start), plain "
-               f"{gs['plain_ms']:.3f} ms, "
-               f"bound {gs['bound_ms']:.4f} ms by {gs['bound_by']} "
-               f"({byts / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP for the active "
-               f"contacts; {flops_all / 1e9:.3f} GFLOP, "
-               f"{bound(byts, flops_all)[0]:.4f} ms, counting every contact) "
-               f"at N={N_ENVS}")
-    del eng, s, physical, problems, active
+    kernel_numbers(phase, gs, pgs.GS_KERNEL, pgs.pgs_gs_reference, problems,
+                   dense_counts(model, N_ENVS, kw["iterations"],
+                                active=physical[4]),
+                   table_words=3 * model.ncand, plain_reps=3)
+    del eng, s, physical, problems, box_ops
 
     phase = "train"
     launches_flat, _ = train_phase(phase, "Solo12-CaT-Flat-v0", pgs.KERNEL,

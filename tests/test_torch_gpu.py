@@ -9,7 +9,8 @@ mode). They import nothing of JAX, so they run on a machine without it:
 Tolerance: the JAX package's kernel-vs-reference bound, rtol 2e-4 /
 atol 2e-5 x max|lam|: the kernel and the plain version run the same float32
 arithmetic in the same block order and differ only in summation order
-(fused multiply-adds, batched contractions). A whole control step on the
+(the kernels work in the space of the dofs and never form A; fused
+multiply-adds; batched contractions). A whole control step on the
 card against the same step on the CPU is held to the tolerances of
 tests/test_torch_engine.py.
 """
@@ -178,7 +179,8 @@ def _rough_raw_engine(device, n, spread=1.2, dz=0.3, joints=0.2):
     model = solo12_model()
     terr = terrain.generate_rough(rows=4, cols=4, patch_m=4.0, seed=0)
     step = engine.make_batched_step(
-        model, engine.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terr, device)
+        model, engine.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terrain=terr,
+        device=device)
     rng = np.random.default_rng(4)
     xy = np.stack([terr.patch_origin(i % 4, i // 4 % 4) for i in range(n)])
     xy = (xy + rng.uniform(-spread, spread, (n, 2))).astype(np.float32)
@@ -283,3 +285,89 @@ def test_raw_engine_on_rough_terrain_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(b.qvel.cpu().numpy(), a.qvel.numpy(), atol=2e-2)
     np.testing.assert_allclose(b.forces.cpu().numpy(), a.forces.numpy(),
                                rtol=0.05, atol=0.05)
+
+
+# ---------------------------------------------------------------------------
+# both kernels at other shapes and staging paths
+# ---------------------------------------------------------------------------
+
+
+def _box_problem(device, n=64):
+    """Contact problems of the raw engine (GS-5) on the joint-less box (4
+    contacts, 6 dofs) on the 25 degree slope, captured after 10 control
+    steps, friction from 1e-3 (sliding) to 1.0 (sticking)."""
+    from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
+
+    model = box_model()
+    step = engine.make_batched_step(model, engine.EngineParams(),
+                                    terrain=slope_terrain(25.0), device=device)
+    s = engine.make_batched_init(model, n, device)._replace(
+        qpos=torch.from_numpy(on_slope_qpos(25.0, n)).to(device))
+    mu = torch.linspace(1e-3, 1.0, n, device=device)
+    target = torch.zeros(n, 0, device=device)
+    for _ in range(10):
+        s = step(s, target, mu)
+    _, ops = step.contact_problem(s, target, mu)
+    return model, ops, step.pgs_kwargs
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_the_box(cuda):
+    model, ops, gs_kw = _box_problem(cuda)
+    assert float(ops[4].sum()) > 0
+    lam = pgs.pgs_gs(*ops, **gs_kw)
+    torch.cuda.synchronize()
+    _check(lam, pgs.pgs_gs_reference(*ops, **gs_kw))
+    perm, blocks = pgs.plan_contact_blocks(model, 2)
+    kw = dict(iterations=6, cfm=1e-4, omega=0.9, contact_perm=perm,
+              blocks=blocks)
+    lam = pgs.pgs_bj(*ops, **kw)
+    torch.cuda.synchronize()
+    _check(lam, pgs.pgs_bj_reference(*ops, **kw))
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_at_go2_shape(cuda):
+    """28 contacts (Go2's spheres, no self-collision pairs), 18 dofs."""
+    ops = tuple(t.to(cuda) for t in _random_problem(1000, 28, 18, seed=28))
+    lam = pgs.pgs_gs(*ops, **GS)
+    torch.cuda.synchronize()
+    _check(lam, pgs.pgs_gs_reference(*ops, **GS))
+    kw = dict(iterations=6, cfm=1e-4, omega=0.9,
+              contact_perm=tuple(range(27, -1, -1)),
+              blocks=tuple((7 * k, 7) for k in range(4)))
+    lam = pgs.pgs_bj(*ops, **kw)
+    torch.cuda.synchronize()
+    _check(lam, pgs.pgs_bj_reference(*ops, **kw))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_33_dofs(cuda):
+    ops = [t.to(cuda) for t in _random_problem(4, 6, 33, seed=3)]
+    with pytest.raises(ValueError, match="dofs"):
+        pgs.GS_KERNEL(*ops, **GS)
+    with pytest.raises(ValueError, match="dofs"):
+        pgs.KERNEL(*ops, **_plan("gauss_seidel", 6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pgs_bj", "pgs_gs"])
+def test_staging_paths_agree(cuda, name):
+    """The lanes' copy of E and W that are not 16-byte aligned computes the
+    same bits as the bulk copy: each env's arithmetic is the same."""
+    ops = _physical_problem(cuda)
+    kern, kw = ((pgs.KERNEL, _plan("production", 36)) if name == "pgs_bj"
+                else (pgs.GS_KERNEL, GS))
+    bulk = kern(*ops, **kw)
+    # E and W 4 bytes past a 16-byte boundary: no bulk copy
+    shifted = []
+    for t in ops[:2]:
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16
+    lanes = kern(*shifted, *ops[2:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bulk, lanes)
+    ref = (pgs.pgs_bj_reference if name == "pgs_bj" else pgs.pgs_gs_reference)
+    _check(bulk, ref(*ops, **kw))

@@ -37,7 +37,8 @@ def _physical_problem(n=8):
     model = port_solo12()
     terr = terrain.generate_rough(rows=2, cols=4, patch_m=4.0, seed=0)
     step = engine.make_batched_step(
-        model, engine.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terr, "cpu")
+        model, engine.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terrain=terr,
+        device="cpu")
     s = engine.make_batched_init(model, n, "cpu")
     xy = torch.tensor(np.stack([terr.patch_origin(i % 2, i % 4)
                                 for i in range(n)]), dtype=torch.float32)
@@ -137,18 +138,21 @@ def test_kernel_wrapper_refuses_cpu_tensors(problems):
 
 
 def test_kernel_dof_table():
-    """The table the kernel sums the assembly over: contact_row_dofs for
-    the model, every dof when none is given; malformed rows are refused."""
+    """The table of nonzero dofs the kernel takes, as a bit mask a row
+    (bit k: dof k enters the row; the kernel leaves the others out): the rows
+    of contact_row_dofs for the model, none when row_dofs is None (every
+    dof); malformed rows are refused."""
     m = port_solo12()
     rows = pgs.contact_row_dofs(m, m.ancestor_mask())
     kern = pgs.PgsGsKernel()
-    dofs, counts = kern._dof_table("cpu", 108, 18, rows)
-    assert [tuple(dofs[r, :counts[r]].tolist()) for r in range(108)] == list(rows)
-    dofs, counts = kern._dof_table("cpu", 9, 5, None)
-    assert (counts == 5).all() and (dofs == torch.arange(5)).all()
+    masks = kern._row_masks("cpu", 108, 18, rows).numpy().view(np.uint32)
+    assert [tuple(k for k in range(18) if masks[r] >> k & 1)
+            for r in range(108)] == list(rows)
+    assert kern._row_masks("cpu", 9, 5, None) is None
+    assert int(kern._row_masks("cpu", 3, 32, [range(32)] * 3)[0]) == -1
     for bad in (rows[:-1], [()] * 108, [(0, 18)] * 108):
         with pytest.raises(ValueError, match="row_dofs"):
-            kern._dof_table("cpu", 108, 18, bad)
+            kern._row_masks("cpu", 108, 18, bad)
 
 
 @pytest.mark.parametrize("structure,solve", [("gs", "pgs_gs"),

@@ -101,8 +101,8 @@ def raw_steps():
     mu = np.random.default_rng(2).uniform(0.6, 1.2, n).astype(np.float32)
     step_j = jax.jit(jem.make_batched_step(model, jem.EngineParams(),
                                            terrain=terr_j, layout="vmap"))
-    step_t = tem.make_batched_step(port_solo12(), tem.EngineParams(), terr_t,
-                                   "cpu")
+    step_t = tem.make_batched_step(port_solo12(), tem.EngineParams(),
+                                   terrain=terr_t, device="cpu")
     assert step_t.solve is pgs.pgs_gs
     sj = jem.make_batched_init(model, n)._replace(
         qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel))
@@ -137,7 +137,8 @@ def test_solo12_stands_on_obstacle_patch():
     model = port_solo12()
     terr = tt.generate_rough(rows=2, cols=4, patch_m=4.0, cell=0.1, seed=0)
     step = tem.make_batched_step(
-        model, tem.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terr, "cpu")
+        model, tem.EngineParams(kp=SOLO12_KP, kd=SOLO12_KD), terrain=terr,
+        device="cpu")
     s = tem.make_batched_init(model, 2, "cpu")
     spots = torch.tensor(np.stack([terr.patch_origin(1, 3),
                                    terr.patch_origin(1, 0)]), dtype=torch.float32)
