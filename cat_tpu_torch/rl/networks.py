@@ -1,7 +1,8 @@
 """Actor-critic networks (port of cat_tpu/rl/networks.py): separate actor
-and critic MLPs 512-256-128 with ELU, orthogonal init (sqrt(2) hidden,
-0.01 action head, 1.0 value head), zero biases, a state-independent
-log-std initialised to 0."""
+and critic MLPs 512-256-128 with ELU (``ActorCritic``), or one shared ELU
+trunk with a policy head and a value head (``SharedActorCritic``, the skrl
+recipe's model); orthogonal init (sqrt(2) hidden, 0.01 action head, 1.0
+value head), zero biases, a state-independent log-std initialised to 0."""
 
 from __future__ import annotations
 
@@ -42,6 +43,41 @@ class ActorCritic(nn.Module):
     def forward(self, obs) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(mean, log_std, value)."""
         return self.actor(obs), self.log_std, self.critic(obs)[..., 0]
+
+    def actor_layers(self):
+        """The Linear layers from the observation to the action mean."""
+        return list(self.actor.layers)
+
+
+class SharedActorCritic(nn.Module):
+    """One [512, 256, 128] ELU trunk under a Gaussian policy head and a
+    value head (cat_tpu/rl/networks.py:55; skrl_ppo_cfg.yaml:3-26)."""
+
+    def __init__(self, num_obs: int, num_actions: int,
+                 hidden: Sequence[int] = (512, 256, 128),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = [num_obs, *hidden]
+        self.trunk = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.policy_head = nn.Linear(dims[-1], num_actions)
+        self.value_head = nn.Linear(dims[-1], 1)
+        gains = [math.sqrt(2.0)] * len(self.trunk) + [0.01, 1.0]
+        for layer, gain in zip([*self.trunk, self.policy_head,
+                                self.value_head], gains):
+            nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
+            nn.init.zeros_(layer.bias)
+        self.log_std = nn.Parameter(torch.zeros(num_actions))
+
+    def forward(self, obs) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, log_std, value)."""
+        x = obs
+        for layer in self.trunk:
+            x = nn.functional.elu(layer(x))
+        return self.policy_head(x), self.log_std, self.value_head(x)[..., 0]
+
+    def actor_layers(self):
+        return [*self.trunk, self.policy_head]
 
 
 def gaussian_logp(mean, log_std, action) -> torch.Tensor:

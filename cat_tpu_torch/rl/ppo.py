@@ -1,5 +1,9 @@
-"""PPO with CaT float-done GAE, single device, clean_rl preset (port of
-cat_tpu/rl/ppo.py:225-492).
+"""PPO with CaT float-done GAE, single device (port of
+cat_tpu/rl/ppo.py:225-512), with the three backends' variants: the
+clean_rl recipe (the PpoCfg defaults), rl_games' (adaptive-KL learning rate
+stepped every minibatch, timeout bootstrap) and skrl's (shared trunk,
+adaptive-KL learning rate stepped every epoch); ``rl/agent_cfgs.py`` has
+the presets.
 
 One ``train_iteration`` is:
   * rollout: ``num_steps`` policy steps; obs normalised by a running
@@ -8,8 +12,12 @@ One ``train_iteration`` is:
     truncation ``true_dones`` both multiply the bootstrap and the trace;
   * value / return normalisation updated in sequence;
   * ``updates_epochs`` x (batch / minibatch) Adam steps on the clipped
-    surrogate, with global grad-norm clipping and a per-iteration linear
-    learning-rate anneal.
+    surrogate, with global grad-norm clipping; the learning rate is a
+    linear anneal over iterations, a constant, or the adaptive-KL rule.
+
+The learning rate lives in one device tensor that Adam reads: the
+adaptive-KL rule updates it on the device from a minibatch's (or an
+epoch's) KL, so the host never waits for the KL.
 """
 
 from __future__ import annotations
@@ -27,9 +35,19 @@ from .normalize import (rms_init, rms_merge_moments, rms_moments,
                         rms_normalize, rms_update)
 
 
+LR_MODES = ("linear", "constant", "adaptive_kl", "adaptive_kl_epoch")
+
+
 @dataclasses.dataclass(frozen=True)
 class PpoCfg:
-    """Hyperparameters (reference clean_rl_ppo_cfg.py:10-34)."""
+    """Hyperparameters (reference clean_rl_ppo_cfg.py:10-34) and the
+    backend-variant knobs of cat_tpu/rl/ppo.py:64-110: ``lr_mode``
+    "adaptive_kl" steps the learning rate after every minibatch (rl_games'
+    AdaptiveScheduler), "adaptive_kl_epoch" once an epoch on the epoch's
+    mean KL (skrl's KLAdaptiveLR), "auto" is "linear" with ``anneal_lr``
+    and "constant" without; ``value_bootstrap`` adds gamma V(s) to the
+    reward of a step that timed out (rl_games); ``shared_model`` takes the
+    shared trunk (skrl)."""
     learning_rate: float = 3.0e-4
     num_steps: int = 24
     num_iterations: int = 2000
@@ -41,7 +59,33 @@ class PpoCfg:
     ent_coef: float = 0.001
     vf_coef: float = 2.0
     max_grad_norm: float = 1.0
+    anneal_lr: bool = True        # read when lr_mode="auto"
+    save_interval: int = 50
     hidden: Tuple[int, ...] = (512, 256, 128)
+    lr_mode: str = "auto"
+    kl_target: float = 0.008
+    lr_min: float = 1.0e-6
+    lr_max: float = 1.0e-2
+    value_bootstrap: bool = False
+    shared_model: bool = False
+
+    @property
+    def resolved_lr_mode(self) -> str:
+        if self.lr_mode == "auto":
+            return "linear" if self.anneal_lr else "constant"
+        return self.lr_mode
+
+
+def adaptive_kl_lr(lr, kl, kl_target: float, lr_min: float, lr_max: float):
+    """rl_games' AdaptiveScheduler step (skrl's KLAdaptiveLR is the same
+    rule): divide by 1.5, floored at lr_min, when kl > 2 kl_target;
+    multiply by 1.5, capped at lr_max, when kl < kl_target / 2; else keep.
+    Tensors in, a tensor out, on their device."""
+    lr, kl = torch.as_tensor(lr), torch.as_tensor(kl)
+    return torch.where(
+        kl > 2.0 * kl_target, torch.clamp(lr / 1.5, min=lr_min),
+        torch.where(kl < 0.5 * kl_target, torch.clamp(lr * 1.5, max=lr_max),
+                    lr))
 
 
 def gae(rewards, values, dones, tdones, next_value, next_done, next_tdone,
@@ -78,14 +122,23 @@ class PPO:
     training iteration."""
 
     def __init__(self, env: CatEnv, cfg: PpoCfg, generator: torch.Generator):
+        if cfg.resolved_lr_mode not in LR_MODES:
+            raise ValueError(f"lr_mode {cfg.lr_mode!r}: one of auto, "
+                             f"{', '.join(LR_MODES)}")
         self.env, self.cfg = env, cfg
         dev = env.device
-        self.net = networks.ActorCritic(env.num_obs, env.num_actions,
-                                        cfg.hidden, generator).to(dev)
-        # the learning rate is set per iteration (linear anneal over
-        # iterations, not optimizer steps)
-        self.opt = torch.optim.Adam(self.net.parameters(),
-                                    lr=cfg.learning_rate, eps=1e-5)
+        net_cls = (networks.SharedActorCritic if cfg.shared_model
+                   else networks.ActorCritic)
+        self.net = net_cls(env.num_obs, env.num_actions, cfg.hidden,
+                           generator).to(dev)
+        # Adam reads the learning rate from this tensor; the anneal sets it
+        # once an iteration, the adaptive rule steps it on the device. On
+        # the card the fused Adam takes it as a device tensor in one
+        # multi-tensor kernel a step (a capturable Adam, the other way to
+        # take one, adds ~40 small kernels a step)
+        self.lr = torch.tensor(cfg.learning_rate, device=dev)
+        self.opt = torch.optim.Adam(self.net.parameters(), lr=self.lr,
+                                    eps=1e-5, fused=dev.type == "cuda")
         self.obs_rms = rms_init((env.num_obs,), dev)
         self.value_rms = rms_init((), dev)
         self.iteration = 0
@@ -100,11 +153,22 @@ class PPO:
         self.next_done = torch.zeros(n, device=first_obs_raw.device)
         self.next_true_done = torch.zeros(n, device=first_obs_raw.device)
 
-    def learning_rate(self) -> float:
-        """Linear anneal to 0 over num_iterations."""
+    def set_iteration_lr(self):
+        """The linear anneal to 0 over num_iterations, or the constant; the
+        adaptive modes carry the rate over from the last iteration."""
         cfg = self.cfg
-        return cfg.learning_rate * max(1.0 - self.iteration / cfg.num_iterations,
-                                       0.0)
+        mode = cfg.resolved_lr_mode
+        if mode == "linear":
+            self.lr.fill_(cfg.learning_rate
+                          * max(1.0 - self.iteration / cfg.num_iterations, 0.0))
+        elif mode == "constant":
+            self.lr.fill_(cfg.learning_rate)
+
+    def step_lr(self, kl: torch.Tensor):
+        """The adaptive-KL step of the learning rate, on the device."""
+        cfg = self.cfg
+        self.lr.copy_(adaptive_kl_lr(self.lr, kl, cfg.kl_target, cfg.lr_min,
+                                     cfg.lr_max))
 
     def loss(self, mb, adv_mom):
         """Clipped surrogate (normalised advantages) + clipped value loss -
@@ -136,22 +200,27 @@ class PPO:
                 (torch.abs(ratio - 1.0) > cfg.clip_coef).float())
         return total, (pg_loss, v_loss, ent_loss, approx_kl, clipfrac)
 
-    def sgd_step(self, mb, adv_mom, lr: float):
-        """One Adam step on one minibatch; returns the loss statistics."""
-        for g in self.opt.param_groups:
-            g["lr"] = lr
+    def sgd_step(self, mb, adv_mom, lr=None):
+        """One Adam step on one minibatch at the current learning rate (or
+        at ``lr``, which then becomes the current one), then rl_games'
+        per-minibatch rate step; returns the loss statistics (total, pg,
+        value, entropy, approx KL, clip fraction)."""
+        if lr is not None:
+            self.lr.fill_(lr)
         self.opt.zero_grad(set_to_none=False)
         total, aux = self.loss(mb, adv_mom)
         total.backward()
         clip_grad_global_norm_(list(self.net.parameters()),
                                self.cfg.max_grad_norm)
         self.opt.step()
+        if self.cfg.resolved_lr_mode == "adaptive_kl":
+            self.step_lr(aux[3])
         return torch.stack([total.detach()] + [a.detach() for a in aux])
 
     def train_iteration(self, es: EnvState, gen: torch.Generator
                         ) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
         cfg, env = self.cfg, self.env
-        lr = self.learning_rate()
+        self.set_iteration_lr()
 
         # ---- rollout ----
         traj = []
@@ -163,6 +232,10 @@ class PPO:
                 action, logp = networks.sample_action(mean, log_std, gen)
             es, next_obs_raw, reward, next_done, time_out = env.step(
                 es, action, gen)
+            if cfg.value_bootstrap:
+                # a step cut off by the time limit keeps gamma V(s) of the
+                # return it would have had (rl_games, cat_common.py:62-67)
+                reward = reward + cfg.gamma * value * time_out.float()
             traj.append((obs, action, logp, value, reward, done, tdone))
             obs_rms = rms_update(obs_rms, next_obs_raw)
             obs = rms_normalize(obs_rms, next_obs_raw)
@@ -209,11 +282,15 @@ class PPO:
             adv_moms = torch.stack([torch.mean(adv_mb, dim=1),
                                     torch.mean(torch.square(adv_mb), dim=1)],
                                    dim=1)
-            for i in range(n_mb):
-                sl = slice(i * cfg.minibatch_size, (i + 1) * cfg.minibatch_size)
-                stats.append(self.sgd_step([x[sl] for x in pdata],
-                                           adv_moms[i], lr))
-        stats = torch.mean(torch.stack(stats), dim=0)
+            epoch = torch.stack([
+                self.sgd_step([x[i * cfg.minibatch_size:
+                                 (i + 1) * cfg.minibatch_size] for x in pdata],
+                              adv_moms[i])
+                for i in range(n_mb)])
+            if cfg.resolved_lr_mode == "adaptive_kl_epoch":
+                self.step_lr(torch.mean(epoch[:, 4]))   # the epoch's mean KL
+            stats.append(epoch)
+        stats = torch.mean(torch.cat(stats), dim=0)
         self.iteration += 1
         names = ("Loss/mean_surrogate_loss", "Loss/mean_pg_loss",
                  "Loss/mean_v_loss", "Loss/mean_entropy_loss",
@@ -222,7 +299,7 @@ class PPO:
         metrics.update({
             "Train/mean_reward_per_step": mean_reward,
             "Train/mean_done": mean_done,
-            "Train/learning_rate": torch.full((), lr),
+            "Train/learning_rate": self.lr.clone(),
             **ep_metrics,
         })
         return es, metrics

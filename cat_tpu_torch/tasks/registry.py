@@ -1,5 +1,5 @@
 """Task registry: task id -> env factory + agent config (port of
-cat_tpu/tasks/registry.py, with the tasks the port runs)."""
+cat_tpu/tasks/registry.py, the same six tasks)."""
 
 from __future__ import annotations
 
@@ -7,27 +7,26 @@ from typing import Callable, Dict, NamedTuple
 
 
 class TaskSpec(NamedTuple):
-    make_env: Callable        # (num_envs, device=...) -> CatEnv
+    make_env: Callable        # (num_envs, play=, overrides=, device=) -> CatEnv
     make_agent_cfg: Callable  # () -> PpoCfg
     description: str
 
 
-def _flat(num_envs=4096, **kw):
-    from cat_tpu_torch.tasks import solo12_flat
-
-    return solo12_flat.make_env(num_envs, **kw)
+_REGISTRY: Dict[str, TaskSpec] = {}
 
 
-def _rough(num_envs=4096, **kw):
-    from cat_tpu_torch.tasks import solo12_rough
-
-    return solo12_rough.make_env(num_envs, **kw)
+def register(name: str, spec: TaskSpec):
+    _REGISTRY[name] = spec
 
 
-def _rough_play(num_envs=50, **kw):
-    from cat_tpu_torch.tasks import solo12_rough
+def get(name: str) -> TaskSpec:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown task {name!r}; available: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
 
-    return solo12_rough.make_env(num_envs, play=True, **kw)
+
+def list_tasks() -> Dict[str, TaskSpec]:
+    return dict(_REGISTRY)
 
 
 def _ppo_cfg():
@@ -36,18 +35,30 @@ def _ppo_cfg():
     return PpoCfg()
 
 
-_REGISTRY: Dict[str, TaskSpec] = {
-    "Solo12-CaT-Flat-v0": TaskSpec(
-        _flat, _ppo_cfg, "Solo12 flat-terrain CaT velocity tracking (train)"),
-    "Solo12-CaT-Rough-v0": TaskSpec(
-        _rough, _ppo_cfg, "Solo12 rough-terrain CaT (heightfield + height "
-        "scan + terrain curriculum)"),
-    "Solo12-CaT-Rough-Play-v0": TaskSpec(
-        _rough_play, _ppo_cfg, "Solo12 rough-terrain CaT (50 envs, no noise)"),
-}
+def _factory(module: str, play: bool):
+    """make_env of ``cat_tpu_torch.tasks.<module>``, imported at the first
+    call; the play variants default to 50 envs."""
+    def make_env(num_envs=50 if play else 4096, **kw):
+        import importlib
+
+        task = importlib.import_module(f"cat_tpu_torch.tasks.{module}")
+        return task.make_env(num_envs, play=play, **kw)
+    return make_env
 
 
-def get(name: str) -> TaskSpec:
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown task {name!r}; available: {sorted(_REGISTRY)}")
-    return _REGISTRY[name]
+for _name, _module, _play, _desc in (
+    ("Solo12-CaT-Flat-v0", "solo12_flat", False,
+     "Solo12 flat-terrain CaT velocity tracking (train)"),
+    ("Solo12-CaT-Rough-v0", "solo12_rough", False,
+     "Solo12 rough-terrain CaT (heightfield + height scan + terrain "
+     "curriculum)"),
+    ("Solo12-CaT-Rough-Play-v0", "solo12_rough", True,
+     "Solo12 rough-terrain CaT (50 envs, no noise)"),
+    ("Solo12-CaT-Flat-Play-v0", "solo12_flat", True,
+     "Solo12 flat-terrain CaT (50 envs, no noise)"),
+    ("Go2-CaT-Flat-v0", "go2_flat", False,
+     "Go2-class quadruped flat-terrain CaT (train)"),
+    ("Go2-CaT-Flat-Play-v0", "go2_flat", True,
+     "Go2-class quadruped flat-terrain CaT (50 envs, no noise)"),
+):
+    register(_name, TaskSpec(_factory(_module, _play), _ppo_cfg, _desc))

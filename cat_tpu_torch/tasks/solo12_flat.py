@@ -1,17 +1,20 @@
 """Solo12 flat-terrain CaT velocity task (port of cat_tpu/tasks/solo12_flat.py):
 the 13 constraint terms of the reference recipe (cat_flat_env_cfg.py:259-355,
-4 soft safety + 4 hard safety + 5 style) on the flat env."""
+4 soft safety + 4 hard safety + 5 style) on the flat env; the play variant
+runs 50 envs with the observation noise off (cat_flat_env_cfg.py:499-514)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 from cat_tpu_torch.envs import constraints as C
 from cat_tpu_torch.envs.cat import ConstraintTerm
-from cat_tpu_torch.envs.env import CatEnv, EnvCfg, resolve_names
+from cat_tpu_torch.envs.env import CatEnv, EnvCfg, NoiseCfg, resolve_names
 from cat_tpu_torch.models.solo12 import (
     SOLO12_ACTUATED_JOINT_ORDER, SOLO12_KD, SOLO12_KP, solo12_model,
 )
+from cat_tpu_torch.utils.overrides import apply_overrides
 
 ALL_LEG_JOINTS = [".*_HAA", ".*_HFE", ".*_KFE"]
 
@@ -68,15 +71,23 @@ def solo12_constraint_terms(model) -> list[ConstraintTerm]:
     ]
 
 
-def make_env(num_envs: int = 4096, cfg: EnvCfg = None,
+PLAY_ENVS = 50
+
+
+def make_env(num_envs: int = 4096, play: bool = False,
+             overrides: Sequence[str] = (), cfg: EnvCfg = None,
              device="cuda") -> CatEnv:
-    """The Solo12 flat CaT env. ``cfg`` replaces the default EnvCfg (its
-    num_envs is overridden)."""
+    """The Solo12 flat CaT env. ``overrides`` are dotted-path EnvCfg
+    overrides (``utils/overrides.py``); ``cfg`` replaces the default EnvCfg
+    (its num_envs is overridden, except in play, which runs 50 envs)."""
     model = solo12_model()
-    cfg = cfg if cfg is not None else EnvCfg(kp=SOLO12_KP, kd=SOLO12_KD)
-    cfg = dataclasses.replace(cfg, num_envs=num_envs)
+    if cfg is None:
+        cfg = EnvCfg(kp=SOLO12_KP, kd=SOLO12_KD)
+        if play:
+            cfg = dataclasses.replace(cfg, noise=NoiseCfg(enabled=False))
+    cfg = dataclasses.replace(cfg, num_envs=PLAY_ENVS if play else num_envs)
     return CatEnv(
-        model=model, cfg=cfg,
+        model=model, cfg=apply_overrides(cfg, overrides),
         constraint_terms=solo12_constraint_terms(model),
         actuated_joint_order=SOLO12_ACTUATED_JOINT_ORDER,
         illegal_contact_bodies=("base_link", ".*_UPPER_LEG"),

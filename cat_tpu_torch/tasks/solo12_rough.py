@@ -6,6 +6,7 @@ and the promote / demote terrain curriculum."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 from cat_tpu_torch.envs.env import (
     CatEnv, EnvCfg, HeightScanCfg, NoiseCfg, TerminationsCfg,
@@ -14,9 +15,8 @@ from cat_tpu_torch.models.solo12 import (
     SOLO12_ACTUATED_JOINT_ORDER, SOLO12_KD, SOLO12_KP, solo12_model,
 )
 from cat_tpu_torch.sim import terrain as terrain_mod
-from cat_tpu_torch.tasks.solo12_flat import solo12_constraint_terms
-
-PLAY_ENVS = 50
+from cat_tpu_torch.tasks.solo12_flat import PLAY_ENVS, solo12_constraint_terms
+from cat_tpu_torch.utils.overrides import apply_overrides
 
 
 def rough_constraint_terms(model):
@@ -53,17 +53,18 @@ def rough_cfg(num_envs: int = 4096, play: bool = False, rows: int = 10,
 
 
 def make_env(num_envs: int = 4096, play: bool = False, rows: int = 10,
-             cols: int = 8, seed: int = 0, cfg: EnvCfg = None,
-             device="cuda") -> CatEnv:
-    """The Solo12 rough CaT env. ``cfg`` replaces ``rough_cfg(...)`` (its
-    num_envs is overridden, except in play, which runs 50 envs)."""
+             cols: int = 8, seed: int = 0, overrides: Sequence[str] = (),
+             cfg: EnvCfg = None, device="cuda") -> CatEnv:
+    """The Solo12 rough CaT env. ``overrides`` are dotted-path EnvCfg
+    overrides (``utils/overrides.py``); ``cfg`` replaces ``rough_cfg(...)``
+    (its num_envs is overridden, except in play, which runs 50 envs)."""
     model = solo12_model()
     if cfg is None:
         cfg = rough_cfg(num_envs, play, rows, cols, seed)
     else:
         cfg = dataclasses.replace(cfg, num_envs=PLAY_ENVS if play else num_envs)
     return CatEnv(
-        model=model, cfg=cfg,
+        model=model, cfg=apply_overrides(cfg, overrides),
         constraint_terms=rough_constraint_terms(model),
         actuated_joint_order=SOLO12_ACTUATED_JOINT_ORDER,
         illegal_contact_bodies=("base_link", ".*_UPPER_LEG"),

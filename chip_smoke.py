@@ -8,29 +8,58 @@ Phases, each printed with its elapsed seconds:
   build: both PGS kernels, ops/csrc/pgs_bj.cu and ops/csrc/pgs_gs.cu, one
      plain nvcc each, started together;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
-     N = 4096, on contact problems captured from the port's flat env, on
-     seeded random problems and on the joint-less box's problems on a 25
-     degree slope (4 contacts, 6 dofs), with the active contacts an env,
-     the kernel's time on the physical problems (also with no sweep) and
-     on the box's, timed as CUDA-graph replays, so without the host's cost
-     of a call, and the time of eager calls one after another, the plain
+     N = 4096, on contact problems captured from the port's flat Solo12 env
+     (36 contacts) and from its Go2 env (28 contacts), on seeded random
+     problems and on the joint-less box's problems on a 25 degree slope (4
+     contacts, 6 dofs), with the active contacts an env, the kernel's time
+     on the physical problems of both robots (also with no sweep) and on
+     the box's, timed as CUDA-graph replays, so without the host's cost of
+     a call, and the time of eager calls one after another, the plain
      version's time and the bound these inputs set, beside the bound of
      the design it replaced;
   kernel-gs: the same for the serial Gauss-Seidel kernel, on problems
-     captured from the raw engine on the production rough terrain;
+     captured from the raw engine on the production rough terrain (Solo12)
+     and on flat ground (Go2);
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
      2 PPO iterations; pgs_bj must launch 2 x 24 x 4 times;
   engine-gs: the raw engine with the default SolverParams (GS-5) on the
      production rough terrain, 4096 Solo12s dropped on patch centres hold
      their default pose for 100 control steps; pgs_gs must launch 400
      times and every robot must stand on its pad;
+  engine-go2: the raw engine (GS-5) with 4096 Go2s dropped from the
+     default pose on flat ground for 75 control steps; pgs_gs must launch
+     300 times, every robot must stand (0.2 < z < 0.45 m, tilt < 0.25,
+     |qvel| < 0.6) and its feet carry its weight to 25%;
+  train-go2: ``cat_tpu_torch.train`` for Go2-CaT-Flat-v0 at 4096 envs
+     with the rl_games recipe, 2 iterations, a checkpoint each (192
+     launches; metrics.jsonl has 2 lines with every key of the JAX
+     package's Go2 log);
+  resume: ckpt_2 restored into a fresh trainer equals the saved state bit
+     for bit (every tensor, the generators), and one more iteration runs
+     from the carried learning rate (96 launches);
+  play-run: ``cat_tpu_torch.play`` on that run directory at 4096 envs for
+     200 control steps (800 launches): it restores the card's checkpoint
+     non-strict into Go2-CaT-Flat-Play-v0, exports it and writes
+     play_traj.npz; the trajectory must be finite and whole, and the
+     TorchScript policy.pt must agree with the actor of the
+     policy_params.npz written beside it;
+  presets: one iteration each of the skrl and clean_rl recipes on
+     Solo12-CaT-Flat-v0 at 4096 envs (96 launches each);
   train-rough: ``cat_tpu_torch.train`` for Solo12-CaT-Rough-v0 at 4096
      envs, 2 PPO iterations; pgs_bj must launch 192 times;
   play: the policy the JAX package trained
      (runs/solo12_flat_2000it/policy_params.npz) walks 4096 envs for 200
-     control steps; at least half must never hit a hard termination.
-Every launch count is set to 0 just before its path and read just after.
-The last lines are a JSON line of kernel numbers, the card's name and power
+     control steps at 1.0 m/s (``play.rollout``, 800 launches); at least
+     half must never hit a hard termination;
+  play-go2: the JAX-trained Go2 policy (runs/go2_r4/policy_params.npz) in
+     Go2-CaT-Flat-v0 at 4096 envs for 200 control steps at 1.0 m/s (800
+     launches), against a gate set from the JAX package's own play; then
+     its export by ``rl/export.py``: the TorchScript module on the card
+     agrees with the actor.
+Training runs log to a temporary directory, never inside the repo.
+Every launch count is set to 0 just before its path and read just after;
+the JSON line's launches are their sums over all paths. The last lines are
+a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
 """
@@ -38,10 +67,13 @@ line; a hang is cut by a faulthandler deadline.
 from __future__ import annotations
 
 import faulthandler
+import gzip
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -57,6 +89,20 @@ RAW_STEPS = 100      # engine-gs: control steps of the raw engine
 # JAX-trained policy walks from rest (at 0.5 m/s many envs stay standing,
 # in the JAX package as in the port)
 PLAY_VX = 1.0
+# the play phases' task setting: that command alone, no pushes, no noise
+PLAY_OVERRIDES = (f"commands.lin_vel_x=({PLAY_VX},{PLAY_VX})",
+                  "commands.lin_vel_y=(0.0,0.0)",
+                  "commands.ang_vel_z=(0.0,0.0)",
+                  "commands.rel_standing_envs=0.0",
+                  "events.push_enabled=False", "noise.enabled=False")
+GO2_SETTLE = 75      # engine-go2: control steps (tests/test_go2.py's fixture)
+# play-go2 gate, set from the JAX package's own play of runs/go2_r4 at this
+# command (tests/test_torch_go2.py run as a script, 48 envs on the CPU,
+# 200 steps): no env survives 200 steps (the policy's thighs touch down,
+# an illegal contact), the first fall comes at step 62.3 on average and
+# the envs walk at 1.325 m/s; the port must reach half of each
+GO2_FIRST_FALL_MIN = 0.5 * 62.3
+GO2_VX_MIN = 0.5 * 1.325
 # kernel vs plain version: |k - p| <= ATOL_REL * max|p| + RTOL * |p|, the
 # JAX package's own kernel-vs-reference tolerance (test_pgs_pallas.py);
 # the two sum in different orders (fused multiply-adds, the plain version's
@@ -217,7 +263,9 @@ def kernel_numbers(phase, row, kernel, plain, problems, old_counts,
     box problem, the time of eager calls one after another (which the
     host's cost of a call bounds when it exceeds the kernel's), the plain
     version's time and the bound for these inputs, beside the bound the
-    replaced design was held to. Fills ``row``."""
+    replaced design was held to; the same times and bound on the Go2
+    problem. ``table_words(nc)``: the words of plan or dof table. Fills
+    ``row``."""
     physical, kw = problems["physical"]
     active = physical[4]
     per_env = (active != 0).sum(1).float()
@@ -228,6 +276,14 @@ def kernel_numbers(phase, row, kernel, plain, problems, old_counts,
                f"of {problems['box'][0][4].shape[1]}")
     row["max_abs_err"] = check_kernel(phase, kernel, plain, problems)
     row["ms"] = graph_ms(lambda: kernel(*physical, **kw), 50)
+    go2, go2_kw = problems["go2"]
+    go2_ms = graph_ms(lambda: kernel(*go2, **go2_kw), 50)
+    go2_no_sweep = graph_ms(lambda: kernel(*go2, **dict(go2_kw, iterations=0)),
+                            50)
+    go2_bytes, go2_flops = pgs_counts(go2[4], go2[0].shape[2],
+                                      go2_kw["iterations"],
+                                      table_words(go2[4].shape[1]))
+    go2_bound, go2_by = bound(go2_bytes, go2_flops)
     box_ms = graph_ms(lambda: kernel(*problems["box"][0],
                                      **problems["box"][1]), 50)
     no_sweep_ms = graph_ms(lambda: kernel(*physical,
@@ -235,7 +291,7 @@ def kernel_numbers(phase, row, kernel, plain, problems, old_counts,
     eager_ms = cuda_ms(lambda: kernel(*physical, **kw), 50)
     row["plain_ms"] = cuda_ms(lambda: plain(*physical, **kw), plain_reps)
     byts, flops = pgs_counts(active, physical[0].shape[2], kw["iterations"],
-                             table_words)
+                             table_words(active.shape[1]))
     row["bound_ms"], row["bound_by"] = bound(byts, flops)
     old_ms, old_by = bound(*old_counts)
     log(phase, f"kernel {row['ms']:.4f} ms on the card (with no sweep "
@@ -248,6 +304,13 @@ def kernel_numbers(phase, row, kernel, plain, problems, old_counts,
                f"replaced design's bound on these inputs {old_ms:.4f} ms by "
                f"{old_by} ({old_counts[0] / 1e6:.1f} MB, "
                f"{old_counts[1] / 1e9:.3f} GFLOP) at N={N_ENVS}")
+    log(phase, f"at nc = {go2[4].shape[1]} (Go2, "
+               f"{(go2[4] != 0).sum(1).float().mean():.2f} active contacts an "
+               f"env): kernel {go2_ms:.4f} ms, with no sweep "
+               f"{go2_no_sweep:.4f} ms, bound {go2_bound:.4f} ms by {go2_by} "
+               f"({go2_bound / go2_ms * 100:.1f}% of it); at nc = "
+               f"{active.shape[1]} (Solo12): {row['ms']:.4f} ms, "
+               f"{no_sweep_ms:.4f} ms")
 
 
 def box_on_slope(dev):
@@ -302,36 +365,135 @@ def raw_engine_on_rough(dev):
     return eng, s._replace(qpos=qpos), target, mu, spots
 
 
-def train_phase(phase, task, kernel, train) -> int:
-    """Two PPO iterations of ``task`` at N_ENVS with ``kernel``'s count
-    set to 0 before and read after; fails unless it launched 2 x 24 x 4
-    times and every metric is finite. Returns (launches, metrics of each
-    iteration)."""
+def train_argv(task, logdir, iters, *extra):
+    return ["--task", task, "--num_envs", str(N_ENVS), "--max_iterations",
+            str(iters), "--device", "cuda", "--logdir", logdir, "--writer",
+            "none", *extra]
+
+
+def check_launches(phase, kernel, expected) -> int:
+    """The launches of ``kernel`` since its count was set to 0; fails
+    unless they are ``expected``."""
     import torch
 
-    torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
-    history = train.main(["--task", task, "--num_envs", str(N_ENVS),
-                          "--max_iterations", str(PPO_ITERS),
-                          "--device", "cuda"])
+    from cat_tpu_torch.ops import pgs
+
     torch.cuda.synchronize()
     launches = kernel.launches
-    expected = PPO_ITERS * 24 * env_decimation()
+    name = "pgs_bj" if kernel is pgs.KERNEL else "pgs_gs"
+    log(phase, f"{name} launches {launches} (expected {expected})")
+    if launches != expected:
+        raise RuntimeError("the main path did not run through the kernel")
+    return launches
+
+
+def check_finite(phase, history):
     for i, m in enumerate(history, 1):
         log(phase, f"iter {i}: {m['Perf/iter_seconds']:.3f} s, "
                    f"{m['Perf/env_steps_per_sec']:.0f} env-steps/s, loss "
                    f"{m['Loss/mean_surrogate_loss']:.4f}, v_loss "
                    f"{m['Loss/mean_v_loss']:.4f}, rew/step "
                    f"{m['Train/mean_reward_per_step']:.5f}, ep_len "
-                   f"{m['Episode/length']:.1f}")
+                   f"{m['Episode/length']:.1f}, lr "
+                   f"{m['Train/learning_rate']:.3g}")
         if not all(math.isfinite(v) for v in m.values()):
             raise RuntimeError(f"non-finite metrics at iteration {i}")
+
+
+def train_phase(phase, argv, kernel, train, iters):
+    """``train.main(argv)`` with ``kernel``'s count set to 0 before and read
+    after; fails unless it launched iters x 24 x 4 times and every metric
+    is finite. Returns (launches, metrics of each iteration)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    history = train.main(argv)
+    launches = check_launches(phase, kernel, iters * 24 * env_decimation())
+    check_finite(phase, history)
     log(phase, f"max memory allocated "
-               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
-               f"launches {launches} (expected {expected})")
-    if launches != expected:
-        raise RuntimeError("the main path did not run through the kernel")
+               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return launches, history
+
+
+def go2_problem(dev, kind):
+    """Contact problems of Go2 (28 contacts, 18 dofs) at N_ENVS, captured
+    after 5 control steps: ``kind`` "env" from its flat env under random
+    actions (the block-Jacobi solve's), "raw" from the raw engine (GS-5)
+    dropped from the default pose on flat ground. Returns (operands,
+    kwargs)."""
+    import torch
+
+    from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
+    from cat_tpu_torch.sim import engine
+    from cat_tpu_torch.tasks import go2_flat
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if kind == "env":
+        env = go2_flat.make_env(N_ENVS, device=dev)
+        es = env.init(gen, N_ENVS)
+        for _ in range(5):
+            es = env.step(es, 0.3 * torch.randn(N_ENVS, 12, generator=gen,
+                                                device=dev), gen)[0]
+        eng, s, mu = env.engine, es.sim, es.mu
+        target = env.default_joint_pos_task[env.m2t].expand(N_ENVS, 12)
+    else:
+        model = go2_model()
+        eng = engine.make_batched_step(
+            model, engine.EngineParams(kp=GO2_KP, kd=GO2_KD), device=dev)
+        s = engine.make_batched_init(model, N_ENVS, dev)
+        target = torch.as_tensor(model.default_qpos_joints,
+                                 dtype=torch.float32,
+                                 device=dev).expand(N_ENVS, 12)
+        mu = torch.ones(N_ENVS, device=dev)
+        for _ in range(5):
+            s = eng(s, target, mu)
+    _, ops = eng.contact_problem(s, target, mu)
+    return tuple(t.contiguous() for t in ops), eng.pgs_kwargs
+
+
+def load_actor(path, dev):
+    """The network of a policy bundle (``policy_params.npz``) on the card,
+    and its observation normaliser's mean and variance. Fails unless the
+    bundle fills every parameter of the actor."""
+    import numpy as np
+
+    from cat_tpu_torch.rl.convert import actor_from_bundle
+    from cat_tpu_torch.rl.networks import ActorCritic
+
+    sd, obs_mean, obs_var = actor_from_bundle(dict(np.load(path)))
+    net = ActorCritic(45, 12).to(dev)
+    res = net.load_state_dict(sd, strict=False)
+    if res.unexpected_keys or any(not k.startswith("critic.")
+                                  for k in res.missing_keys):
+        raise RuntimeError(f"policy bundle {path} does not fit the actor: "
+                           f"{res}")
+    return net, obs_mean.to(dev), obs_var.to(dev)
+
+
+def play_bundle(phase, env, net, obs_mean, obs_var):
+    """PLAY_STEPS control steps (``play.rollout``) of a bundle's actor, the
+    mean action, from a fresh state of ``env``, with pgs_bj's count set to
+    0 before and checked after. Returns (launches, share of envs that
+    never fell, mean step of an env's first fall with PLAY_STEPS for none,
+    mean forward velocity over the second half, the last observation)."""
+    import torch
+
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.play import rollout
+
+    obs_std = torch.sqrt(obs_var + 1e-8)
+    gen = torch.Generator(device=obs_mean.device).manual_seed(1)
+    es = env.init(gen, env.cfg.num_envs)
+    pgs.KERNEL.launches = 0
+    run = rollout(env, es, lambda obs: net.actor((obs - obs_mean) / obs_std),
+                  PLAY_STEPS, gen)
+    launches = check_launches(phase, pgs.KERNEL, PLAY_STEPS * env_decimation())
+    # no episode times out in PLAY_STEPS steps, so a reset is a fall
+    first = run["first_reset"]
+    return (launches, (first == PLAY_STEPS).float().mean().item(),
+            first.float().mean().item(),
+            run["vx"][PLAY_STEPS // 2:].mean().item(), run["obs"])
 
 
 def main() -> int:
@@ -349,13 +511,14 @@ def main() -> int:
     except ImportError as exc:
         log(phase, f"FAIL: the port is not beside this script ({exc})")
         return 2
-    from cat_tpu_torch import train
-    from cat_tpu_torch.envs.env import CommandsCfg, EnvCfg, EventsCfg, NoiseCfg
-    from cat_tpu_torch.rl.convert import actor_from_bundle
-    from cat_tpu_torch.rl.networks import ActorCritic
-    from cat_tpu_torch.sim import terrain
-    from cat_tpu_torch.sim.maths import quat_rotate_inv
-    from cat_tpu_torch.tasks import solo12_flat
+    import numpy as np
+
+    from cat_tpu_torch import play, train
+    from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
+    from cat_tpu_torch.rl import checkpoint
+    from cat_tpu_torch.rl.export import export_policy
+    from cat_tpu_torch.sim import engine, terrain
+    from cat_tpu_torch.tasks import go2_flat, solo12_flat
 
     dev = cat_tpu_torch.resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -391,6 +554,7 @@ def main() -> int:
     perm, blocks = pgs.plan_contact_blocks(box, 2)
     problems = {
         "physical": (physical, kw),
+        "go2": go2_problem(dev, "env"),
         "random": (random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
                    kw),
         "box": (box_ops, dict(kw, contact_perm=perm, blocks=blocks)),
@@ -399,7 +563,7 @@ def main() -> int:
               replaces="cat_tpu/ops/pgs_pallas.py:419")
     kernel_numbers(phase, bj, pgs.KERNEL, pgs.pgs_bj_reference, problems,
                    dense_counts(model, N_ENVS, kw["iterations"]),
-                   table_words=model.ncand + 2 * len(kw["blocks"]),
+                   table_words=lambda nc: nc + 2 * len(kw["blocks"]),
                    plain_reps=5)
     del env, es, physical, problems
 
@@ -417,6 +581,7 @@ def main() -> int:
     # the random rows are dense: every dof enters them
     problems = {
         "physical": (physical, kw),
+        "go2": go2_problem(dev, "raw"),
         "random": (random_problems(N_ENVS, model.ncand, model.nv, gen, dev),
                    dict(kw, row_dofs=None)),
         "box": (box_ops, box_gs_kw),
@@ -426,92 +591,231 @@ def main() -> int:
     kernel_numbers(phase, gs, pgs.GS_KERNEL, pgs.pgs_gs_reference, problems,
                    dense_counts(model, N_ENVS, kw["iterations"],
                                 active=physical[4]),
-                   table_words=3 * model.ncand, plain_reps=3)
+                   table_words=lambda nc: 3 * nc, plain_reps=3)
     del eng, s, physical, problems, box_ops
+    bj["launches"] = gs["launches"] = 0
 
-    phase = "train"
-    launches_flat, _ = train_phase(phase, "Solo12-CaT-Flat-v0", pgs.KERNEL,
-                                   train)
+    with tempfile.TemporaryDirectory() as logdir:
+        phase = "train"
+        launches, _ = train_phase(
+            phase, train_argv("Solo12-CaT-Flat-v0", logdir, PPO_ITERS),
+            pgs.KERNEL, train, PPO_ITERS)
+        bj["launches"] += launches
 
-    phase = "engine-gs"
-    eng, s, target, mu, spots = raw_engine_on_rough(dev)
-    pgs.GS_KERNEL.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(RAW_STEPS):
-        s = eng(s, target, mu)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / RAW_STEPS * 1e3
-    gs["launches"] = pgs.GS_KERNEL.launches
-    expected = RAW_STEPS * eng.params.decimation
-    finite = all(bool(torch.isfinite(t.float()).all()) for t in s)
-    rel_z = s.qpos[:, 2] - terrain.height_at(eng.terrain, s.qpos[:, 0:2])
-    drift = torch.linalg.vector_norm(s.qpos[:, 0:2] - spots, dim=1)
-    standing = int(((rel_z > 0.12) & (rel_z < 0.40) & (drift < 0.5)).sum())
-    log(phase, f"{RAW_STEPS} control steps x {N_ENVS} envs: "
-               f"{step_ms:.2f} ms a control step; pgs_gs launches "
-               f"{gs['launches']} (expected {expected}); z - h in "
-               f"[{rel_z.min():.4f}, {rel_z.max():.4f}] m, drift max "
-               f"{drift.max():.4f} m; {standing} of {N_ENVS} standing")
-    if gs["launches"] != expected:
-        raise RuntimeError("the raw engine did not run through pgs_gs")
-    if not finite or standing != N_ENVS:
-        raise RuntimeError("robots fell, tunnelled or drifted on the pads")
-    del eng, s
+        phase = "engine-gs"
+        eng, s, target, mu, spots = raw_engine_on_rough(dev)
+        pgs.GS_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RAW_STEPS):
+            s = eng(s, target, mu)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / RAW_STEPS * 1e3
+        gs["launches"] += check_launches(phase, pgs.GS_KERNEL,
+                                         RAW_STEPS * eng.params.decimation)
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in s)
+        rel_z = s.qpos[:, 2] - terrain.height_at(eng.terrain, s.qpos[:, 0:2])
+        drift = torch.linalg.vector_norm(s.qpos[:, 0:2] - spots, dim=1)
+        standing = int(((rel_z > 0.12) & (rel_z < 0.40) & (drift < 0.5)).sum())
+        log(phase, f"{RAW_STEPS} control steps x {N_ENVS} envs: "
+                   f"{step_ms:.2f} ms a control step; z - h in "
+                   f"[{rel_z.min():.4f}, {rel_z.max():.4f}] m, drift max "
+                   f"{drift.max():.4f} m; {standing} of {N_ENVS} standing")
+        if not finite or standing != N_ENVS:
+            raise RuntimeError("robots fell, tunnelled or drifted on the pads")
+        del eng, s
 
-    phase = "train-rough"
-    bj["launches"], history = train_phase(phase, "Solo12-CaT-Rough-v0",
-                                          pgs.KERNEL, train)
-    levels = [m["Curriculum/terrain_levels"] for m in history
-              if "Curriculum/terrain_levels" in m]
-    log(phase, f"Curriculum/terrain_levels {levels}; flat training launched "
-               f"pgs_bj {launches_flat} times, rough training "
-               f"{bj['launches']}")
-    if len(levels) != len(history) or not all(0.0 <= v <= 9.0 for v in levels):
-        raise RuntimeError("Curriculum/terrain_levels missing or out of [0, 9]")
+        phase = "engine-go2"
+        model = go2_model()
+        eng = engine.make_batched_step(
+            model, engine.EngineParams(kp=GO2_KP, kd=GO2_KD), device=dev)
+        s = engine.make_batched_init(model, N_ENVS, dev)
+        target = torch.as_tensor(model.default_qpos_joints,
+                                 dtype=torch.float32,
+                                 device=dev).expand(N_ENVS, model.nj)
+        mu = torch.ones(N_ENVS, device=dev)
+        pgs.GS_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GO2_SETTLE):
+            s = eng(s, target, mu)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / GO2_SETTLE * 1e3
+        gs["launches"] += check_launches(phase, pgs.GS_KERNEL,
+                                         GO2_SETTLE * eng.params.decimation)
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in s)
+        z = s.qpos[:, 2]
+        tilt = 2 * torch.sqrt(s.qpos[:, 4] ** 2 + s.qpos[:, 5] ** 2)
+        qvel_max = s.qvel.abs().amax(dim=1)
+        weight = float(model.mass.sum()) * 9.81
+        fz = s.forces.reshape(N_ENVS, model.nreport, 3)[:, :, 2].sum(dim=1)
+        standing = int(((z > 0.2) & (z < 0.45) & (tilt < 0.25)
+                        & (qvel_max < 0.6)).sum())
+        carried = int(((fz - weight).abs() <= 0.25 * weight).sum())
+        log(phase, f"{GO2_SETTLE} control steps x {N_ENVS} Go2s: "
+                   f"{step_ms:.2f} ms a control step; z in [{z.min():.4f}, "
+                   f"{z.max():.4f}] m, tilt max {tilt.max():.4f}, |qvel| max "
+                   f"{qvel_max.max():.4f}; summed contact force in "
+                   f"[{fz.min():.2f}, {fz.max():.2f}] N (weight "
+                   f"{weight:.2f} N); {standing} standing and {carried} "
+                   f"carried of {N_ENVS}")
+        if not finite or standing != N_ENVS or carried != N_ENVS:
+            raise RuntimeError("Go2s fell, sank or were not carried")
+        del eng, s
 
-    phase = "play"
-    bundle_path = repo / "runs" / "solo12_flat_2000it" / "policy_params.npz"
-    import numpy as np
+        phase = "train-go2"
+        go2_argv = train_argv("Go2-CaT-Flat-v0", logdir, PPO_ITERS, "--agent",
+                              "rl_games", "--run_name", "go2", "--override",
+                              "save_interval=1")
+        launches, history = train_phase(phase, go2_argv, pgs.KERNEL, train,
+                                        PPO_ITERS)
+        bj["launches"] += launches
+        run_dir = os.path.join(logdir, "rl_games", "Go2-CaT-Flat-v0", "go2")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        with gzip.open(repo / "runs" / "go2_r4" / "metrics.jsonl.gz", "rt") as f:
+            ref_keys = set(json.loads(f.readline()))
+        missing = sorted(set().union(*(ref_keys - set(r) for r in lines)))
+        log(phase, f"metrics.jsonl: {len(lines)} lines, steps "
+                   f"{[r['step'] for r in lines]}, {len(ref_keys)} keys of the "
+                   f"JAX package's Go2 log, missing {missing}; "
+                   f"{sorted(os.listdir(run_dir))}")
+        if len(lines) != PPO_ITERS or missing:
+            raise RuntimeError("metrics.jsonl lacks lines or keys")
 
-    sd, obs_mean, obs_var = actor_from_bundle(dict(np.load(bundle_path)))
-    net = ActorCritic(45, 12).to(dev)
-    res = net.load_state_dict(sd, strict=False)
-    if res.unexpected_keys or any(not k.startswith("critic.")
-                                  for k in res.missing_keys):
-        raise RuntimeError(f"policy bundle does not fit the actor: {res}")
-    obs_mean, obs_std = obs_mean.to(dev), torch.sqrt(obs_var.to(dev) + 1e-8)
-    cfg = EnvCfg(kp=4.0, kd=0.2,
-                 commands=CommandsCfg(lin_vel_x=(PLAY_VX, PLAY_VX),
-                                      lin_vel_y=(0.0, 0.0),
-                                      ang_vel_z=(0.0, 0.0),
-                                      rel_standing_envs=0.0),
-                 events=EventsCfg(push_enabled=False),
-                 noise=NoiseCfg(enabled=False))
-    env = solo12_flat.make_env(N_ENVS, cfg=cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    es = env.init(gen, N_ENVS)
-    obs = env.observe(es, gen)
-    fell = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
-    vx = []
-    with torch.no_grad():
-        for t in range(PLAY_STEPS):
-            action = net.actor((obs - obs_mean) / obs_std)
-            es, obs, _, _, _ = env.step(es, action, gen)
-            # no episode times out in 200 steps, so a reset is a fall
-            fell |= es.episode_len == 0
-            vx.append(quat_rotate_inv(es.sim.qpos[:, 3:7],
-                                      es.sim.qvel[:, 0:3])[:, 0])
-    survive = 1.0 - fell.float().mean().item()
-    vx_mean = torch.stack(vx[PLAY_STEPS // 2:]).mean().item()
-    log(phase, f"{survive * 100:.1f}% of {N_ENVS} envs never hit a hard "
-               f"termination in {PLAY_STEPS} steps; mean forward velocity "
-               f"{vx_mean:.3f} m/s over the last {PLAY_STEPS // 2} steps "
-               f"(command {PLAY_VX} m/s)")
-    if not survive >= 0.5:
-        raise RuntimeError("the JAX-trained policy falls in the port's physics")
-    if not vx_mean >= 0.5 * PLAY_VX:
-        raise RuntimeError("the JAX-trained policy does not walk in the port")
+        phase = "resume"
+        ckpt = os.path.join(run_dir, f"ckpt_{PPO_ITERS}.pt")
+        fresh = train.Trainer(train.parse_args(go2_argv))
+        fresh.restore(ckpt)
+        saved = checkpoint.load(ckpt)
+        differ = checkpoint.mismatches(
+            saved, checkpoint.state_dict(fresh.ppo, fresh.es, fresh.generators))
+        lr_saved = float(fresh.ppo.lr)
+        log(phase, f"{ckpt}: {os.path.getsize(ckpt) / 2**20:.1f} MiB, "
+                   f"{len(checkpoint.flatten(saved))} leaves; {len(differ)} "
+                   f"differ from the restored state {differ[:5]}; learning "
+                   f"rate {lr_saved:.6g} restored, {history[-1]['Train/learning_rate']:.6g} "
+                   f"logged at iteration {PPO_ITERS}")
+        if differ or lr_saved != history[-1]["Train/learning_rate"]:
+            raise RuntimeError("the restored state is not the saved one")
+        pgs.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        metrics = fresh.train_iteration()
+        metrics["Perf/iter_seconds"] = time.perf_counter() - t0
+        metrics["Perf/env_steps_per_sec"] = (
+            24 * N_ENVS / metrics["Perf/iter_seconds"])
+        bj["launches"] += check_launches(phase, pgs.KERNEL,
+                                         24 * env_decimation())
+        check_finite(phase, [metrics])
+        if fresh.ppo.iteration != PPO_ITERS + 1:
+            raise RuntimeError("the resumed run did not go on from its iteration")
+        del fresh
+
+        phase = "play-run"
+        pgs.KERNEL.launches = 0
+        play.main(["--run_dir", run_dir, "--steps", str(PLAY_STEPS),
+                   "--num_envs", str(N_ENVS), "--device", "cuda"])
+        bj["launches"] += check_launches(phase, pgs.KERNEL,
+                                         PLAY_STEPS * env_decimation())
+        files = sorted(os.listdir(run_dir))
+        traj = np.load(os.path.join(run_dir, "play_traj.npz"))
+        finite = all(np.isfinite(traj[k]).all() for k in ("qpos", "reward"))
+        net, obs_mean, obs_var = load_actor(
+            os.path.join(run_dir, "policy_params.npz"), dev)
+        policy = torch.jit.load(os.path.join(run_dir, "policy.pt"),
+                                map_location=dev)
+        obs_std = torch.sqrt(obs_var + 1e-8)
+        obs = obs_mean + obs_std * torch.randn(
+            N_ENVS, 45, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(3))
+        with torch.no_grad():
+            err = (policy(obs) - net.actor((obs - obs_mean) / obs_std)).abs()
+        log(phase, f"play.py on {run_dir}: play_traj.npz qpos "
+                   f"{traj['qpos'].shape}, reward {traj['reward'].shape}, "
+                   f"finite {finite}, mean reward/step "
+                   f"{traj['reward'].mean():.5f}; policy.pt vs the exported "
+                   f"bundle's actor on {N_ENVS} observations: max abs err "
+                   f"{err.max().item():.3g} (atol 1e-5); {files}")
+        missing = {"policy_params.npz", "policy.pt", "policy.pt2",
+                   "play_traj.npz"} - set(files)
+        if missing or not finite or traj["qpos"].shape != (
+                PLAY_STEPS, N_ENVS, go2_model().nq):
+            raise RuntimeError(f"play.py left no or a wrong trajectory, or "
+                               f"no {sorted(missing)}")
+        if not err.max().item() <= 1e-5:
+            raise RuntimeError("play.py's TorchScript export disagrees with "
+                               "its policy_params.npz")
+
+        phase = "presets"
+        for agent in ("skrl", "clean_rl"):
+            launches, _ = train_phase(
+                f"{phase} {agent}",
+                train_argv("Solo12-CaT-Flat-v0", logdir, 1, "--agent", agent,
+                           "--run_name", agent), pgs.KERNEL, train, 1)
+            bj["launches"] += launches
+
+        phase = "train-rough"
+        launches, history = train_phase(
+            phase, train_argv("Solo12-CaT-Rough-v0", logdir, PPO_ITERS),
+            pgs.KERNEL, train, PPO_ITERS)
+        bj["launches"] += launches
+        levels = [m["Curriculum/terrain_levels"] for m in history
+                  if "Curriculum/terrain_levels" in m]
+        log(phase, f"Curriculum/terrain_levels {levels}")
+        if len(levels) != len(history) or not all(0.0 <= v <= 9.0
+                                                   for v in levels):
+            raise RuntimeError("Curriculum/terrain_levels missing or out of "
+                               "[0, 9]")
+
+        phase = "play"
+        net, obs_mean, obs_var = load_actor(
+            repo / "runs" / "solo12_flat_2000it" / "policy_params.npz", dev)
+        env = solo12_flat.make_env(N_ENVS, overrides=PLAY_OVERRIDES,
+                                   device=dev)
+        launches, survive, first, vx_mean, _ = play_bundle(
+            phase, env, net, obs_mean, obs_var)
+        bj["launches"] += launches
+        log(phase, f"{survive * 100:.1f}% of {N_ENVS} envs never hit a hard "
+                   f"termination in {PLAY_STEPS} steps (first at step "
+                   f"{first:.1f} on average); mean forward velocity "
+                   f"{vx_mean:.3f} m/s over the last {PLAY_STEPS // 2} steps "
+                   f"(command {PLAY_VX} m/s)")
+        if not survive >= 0.5:
+            raise RuntimeError("the JAX-trained policy falls in the port's "
+                               "physics")
+        if not vx_mean >= 0.5 * PLAY_VX:
+            raise RuntimeError("the JAX-trained policy does not walk in the "
+                               "port")
+
+        phase = "play-go2"
+        net, obs_mean, obs_var = load_actor(
+            repo / "runs" / "go2_r4" / "policy_params.npz", dev)
+        env = go2_flat.make_env(N_ENVS, overrides=PLAY_OVERRIDES, device=dev)
+        launches, survive, first, vx_mean, obs = play_bundle(
+            phase, env, net, obs_mean, obs_var)
+        bj["launches"] += launches
+        log(phase, f"{survive * 100:.1f}% of {N_ENVS} Go2 envs never hit a "
+                   f"hard termination in {PLAY_STEPS} steps; first at step "
+                   f"{first:.1f} on average (gate >= {GO2_FIRST_FALL_MIN:.2f});"
+                   f" mean forward velocity {vx_mean:.3f} m/s over the last "
+                   f"{PLAY_STEPS // 2} steps (gate >= {GO2_VX_MIN:.4f}, "
+                   f"command {PLAY_VX} m/s)")
+        if not (first >= GO2_FIRST_FALL_MIN and vx_mean >= GO2_VX_MIN):
+            raise RuntimeError("the JAX-trained Go2 policy falls sooner or "
+                               "walks slower in the port than the gate")
+        export_dir = os.path.join(logdir, "export")
+        export_policy(net, obs_mean, obs_var, export_dir)
+        policy = torch.jit.load(os.path.join(export_dir, "policy.pt"),
+                                map_location=dev)
+        with torch.no_grad():
+            err = (policy(obs) - net.actor(
+                (obs - obs_mean) / torch.sqrt(obs_var + 1e-8))).abs()
+        log(phase, f"policy.pt on the card vs the actor on {obs.shape[0]} "
+                   f"observations: max abs err {err.max().item():.3g} "
+                   f"(atol 1e-5); {sorted(os.listdir(export_dir))}")
+        if not err.max().item() <= 1e-5:
+            raise RuntimeError("the exported TorchScript policy disagrees "
+                               "with the actor")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -371,3 +371,89 @@ def test_staging_paths_agree(cuda, name):
     assert torch.equal(bulk, lanes)
     ref = (pgs.pgs_bj_reference if name == "pgs_bj" else pgs.pgs_gs_reference)
     _check(bulk, ref(*ops, **kw))
+
+
+# ---------------------------------------------------------------------------
+# Go2 and the training run's lifecycle on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_go2_physical_problems(cuda):
+    """Both kernels on problems captured from Go2 (nc 28, nv 18): pgs_bj's
+    from its flat env after 4 control steps, pgs_gs's from its raw engine
+    (GS-5) dropped from the default pose for 4 control steps."""
+    from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
+    from cat_tpu_torch.tasks import go2_flat
+
+    n = 256
+    env = go2_flat.make_env(n, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    es = env.init(gen, n)
+    for _ in range(4):
+        es = env.step(es, 0.3 * torch.randn(n, 12, generator=gen, device=cuda),
+                      gen)[0]
+    target = env.default_joint_pos_task[env.m2t].expand(n, 12)
+    _, ops = env.engine.contact_problem(es.sim, target, es.mu)
+    assert ops[0].shape[1:] == (84, 18)
+    _check(pgs.pgs_bj(*ops, **env.engine.pgs_kwargs),
+           pgs.pgs_bj_reference(*ops, **env.engine.pgs_kwargs))
+
+    model = go2_model()
+    step = engine.make_batched_step(
+        model, engine.EngineParams(kp=GO2_KP, kd=GO2_KD), device=cuda)
+    s = engine.make_batched_init(model, n, cuda)
+    target = torch.as_tensor(model.default_qpos_joints, dtype=torch.float32,
+                             device=cuda).expand(n, 12)
+    mu = torch.ones(n, device=cuda)
+    for _ in range(4):
+        s = step(s, target, mu)
+    _, ops = step.contact_problem(s, target, mu)
+    assert step.solve is pgs.pgs_gs
+    _check(pgs.pgs_gs(*ops, **step.pgs_kwargs),
+           pgs.pgs_gs_reference(*ops, **step.pgs_kwargs))
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A card run's checkpoint restores bit for bit into a fresh trainer
+    (fused Adam, CUDA generators), and the restored run steps on."""
+    from cat_tpu_torch import train
+    from cat_tpu_torch.rl import checkpoint
+
+    argv = ["--task", "Go2-CaT-Flat-v0", "--agent", "rl_games",
+            "--num_envs", "64", "--override", "num_steps=4",
+            "minibatch_size=128"]
+    tr = train.Trainer(train.parse_args(argv))
+    assert tr.ppo.opt.param_groups[0]["fused"]
+    tr.train_iteration()
+    path = tr.save(str(tmp_path / "ckpt_1"))
+    fresh = train.Trainer(train.parse_args(argv))
+    fresh.restore(path)
+    assert checkpoint.mismatches(
+        checkpoint.load(path),
+        checkpoint.state_dict(fresh.ppo, fresh.es, fresh.generators)) == []
+    assert fresh.ppo.lr.device.type == "cuda"
+    metrics = fresh.train_iteration()
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert fresh.ppo.iteration == 2
+
+
+@pytest.mark.gpu
+def test_exported_torchscript_matches_the_actor_on_the_card(cuda, tmp_path):
+    from cat_tpu_torch.rl.convert import actor_from_bundle
+    from cat_tpu_torch.rl.export import export_policy
+    from cat_tpu_torch.rl.networks import ActorCritic
+
+    sd, mean, var = actor_from_bundle(dict(np.load(
+        "runs/go2_r4/policy_params.npz")))
+    net = ActorCritic(45, 12).to(cuda)
+    net.load_state_dict(sd, strict=False)
+    export_policy(net, mean, var, str(tmp_path))
+    policy = torch.jit.load(str(tmp_path / "policy.pt"), map_location=cuda)
+    obs = torch.randn(1024, 45, generator=torch.Generator().manual_seed(0))
+    obs = obs.to(cuda)
+    with torch.no_grad():
+        want = net.actor((obs - mean.to(cuda)) / torch.sqrt(var.to(cuda) + 1e-8))
+        got = policy(obs)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
