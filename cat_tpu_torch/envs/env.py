@@ -9,9 +9,10 @@ One ``step(state, action, generator)`` does, in the reference's order:
   5. CaT constraints -> cstr_prob; reward = clip(r (1 - p), min 0);
      dones = cstr_prob, forced to 1 where an env resets
   6. terrain curriculum (heightfield), masked auto-reset at the env's own
-     patch (reset events, finished-episode accumulators)
+     patch (reset events, then the reset event terms; finished-episode
+     accumulators)
   7. command schedule, deadzone, stochastic resample, yaw-rate flip
-  8. interval push event
+  8. interval push event, then the interval event terms
   9. the 45-dim observation, plus the 187-point height scan on rough
      terrain, optionally noise-corrupted
 
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +51,27 @@ class CommandsCfg:
     velocity_deadzone: float = 0.1
 
 
+class EventTerm(NamedTuple):
+    """An event term a task adds through ``EventsCfg.extra_terms``, fired
+    beside the built-in events in one of the reference's three modes
+    (cat_tpu/envs/env.py:65-90). Every draw comes from the env's
+    ``torch.Generator`` ``gen``:
+
+      startup : func(gen, n, model, **params) -> dict of EnvState field
+                updates, applied once at the end of ``init``;
+      reset   : func(gen, sim, reset (N,) bool, model, **params) ->
+                SimState, applied to the state after the masked auto-reset
+                (so it sees freshly reset envs; guard by ``reset``);
+      interval: func(gen, sim, state, cfg, **params) -> SimState, applied
+                every control step after the push (``state``: the step's
+                input EnvState).
+    """
+    name: str
+    mode: str
+    func: Callable
+    params: Optional[Dict] = None
+
+
 @dataclasses.dataclass(frozen=True)
 class EventsCfg:
     friction_range: Tuple[float, float] = (0.5, 1.25)   # startup, per env
@@ -59,6 +81,12 @@ class EventsCfg:
     reset_joint_scale: Tuple[float, float] = (0.95, 1.05)
     push_vel_xy: float = 0.5
     push_enabled: bool = True
+    # randomize_body_coms, a startup event: the CoM of each body that
+    # com_bodies names moves by U(-d, d)^3 in its frame, per env; 0 (the
+    # recipes' setting) leaves it off and the engine without offsets
+    com_displacement: float = 0.0
+    com_bodies: Tuple[str, ...] = (".*",)
+    extra_terms: Tuple[EventTerm, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,14 +330,27 @@ class CatEnv:
         def z(*shape):
             return torch.zeros(shape, device=dev)
 
-        return EnvState(
-            sim=self._reset_sim(gen, n, origin),
+        sim = self._reset_sim(gen, n, origin)
+        command = self._sample_commands(gen, n)
+        # randomize_body_coms, drawn after every other startup draw, so the
+        # rest of the state is the one an env without it starts from
+        com_offset = z(n, self.model.nbody, 3)
+        if ev.com_displacement > 0.0:
+            mask = torch.zeros(self.model.nbody, 1, device=dev)
+            mask[torch.as_tensor(resolve_names(list(ev.com_bodies),
+                                               self.model.body_names),
+                                 dtype=torch.long, device=dev)] = 1.0
+            com_offset = self._uniform(gen, (n, self.model.nbody, 3),
+                                       -ev.com_displacement,
+                                       ev.com_displacement) * mask
+        state = EnvState(
+            sim=sim,
             action=z(n, nj), prev_action=z(n, nj),
             episode_len=torch.zeros(n, dtype=torch.int32, device=dev),
-            command=self._sample_commands(gen, n),
+            command=command,
             command_time_left=torch.full(
                 (n,), self.cfg.commands.resampling_time, device=dev),
-            mu=mu,
+            mu=mu, com_offset=com_offset,
             running_max=self.cset.init_running_max(),
             max_p=self.cset.init_max_p(),
             episode_viol=z(n, nt), episode_prob=z(n, nt), episode_rew=z(n),
@@ -318,6 +359,11 @@ class CatEnv:
             acc_viol=z(nt), acc_prob=z(nt), acc_rew=z(), acc_len=z(),
             acc_count=z(), acc_term=z(3),
         )
+        for t in ev.extra_terms:
+            if t.mode == "startup":
+                state = state._replace(**t.func(gen, n, self.model,
+                                                **(t.params or {})))
+        return state
 
     def _sample_commands(self, gen, n: int) -> torch.Tensor:
         """Uniform command sample; a rel_standing_envs share stands still."""
@@ -371,7 +417,9 @@ class CatEnv:
         prev_action, action = state.action, raw_action
         target = (self.default_joint_pos_task
                   + cfg.action_scale * action)[:, self.m2t]
-        sim = self.engine(state.sim, target, state.mu)
+        sim = self.engine(state.sim, target, state.mu,
+                          state.com_offset if cfg.events.com_displacement > 0.0
+                          else None)
 
         # 3. counters
         episode_len = state.episode_len + 1
@@ -447,6 +495,9 @@ class CatEnv:
             torch.where(reset.reshape((n,) + (1,) * (old.dim() - 1)), new, old)
             for new, old in zip(fresh, sim)
         ])
+        for t in cfg.events.extra_terms:
+            if t.mode == "reset":
+                sim = t.func(gen, sim, reset, self.model, **(t.params or {}))
         episode_len = torch.where(reset, 0, episode_len).to(torch.int32)
         episode_viol = torch.where(reset[:, None], 0.0, episode_viol)
         episode_prob = torch.where(reset[:, None], 0.0, episode_prob)
@@ -472,6 +523,9 @@ class CatEnv:
             new_qvel[:, 2:6] = 0.0
             sim = sim._replace(
                 qvel=torch.where(push[:, None], new_qvel, sim.qvel))
+        for t in cfg.events.extra_terms:
+            if t.mode == "interval":
+                sim = t.func(gen, sim, state, cfg, **(t.params or {}))
 
         # 9. observations
         data = self.step_data(sim, command, action, prev_action)
@@ -481,6 +535,7 @@ class CatEnv:
             sim=sim, action=action, prev_action=prev_action,
             episode_len=episode_len, command=command,
             command_time_left=time_left, mu=state.mu,
+            com_offset=state.com_offset,
             running_max=running_max, max_p=max_p,
             episode_viol=episode_viol, episode_prob=episode_prob,
             episode_rew=episode_rew, origin=origin, terrain_row=trow,

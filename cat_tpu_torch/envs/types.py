@@ -38,6 +38,7 @@ class EnvState(NamedTuple):
     command: torch.Tensor            # (N, 3)
     command_time_left: torch.Tensor  # (N,) seconds to the scheduled resample
     mu: torch.Tensor                 # (N,) friction
+    com_offset: torch.Tensor         # (N, nbody, 3) body-frame CoM shifts
     running_max: torch.Tensor        # (Ktot,) CaT polyak maxes (global)
     max_p: torch.Tensor              # (n_terms,) curriculum-scaled caps
     episode_viol: torch.Tensor       # (N, n_terms)

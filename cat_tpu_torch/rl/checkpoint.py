@@ -10,6 +10,13 @@ checks the saved tree against the live one and names the first leaf whose
 shape or dtype differs; with ``strict=False`` a leaf of another shape (an
 env-sized leaf of a run with another env count) keeps the live value, so a
 training checkpoint loads into a 50-env play env.
+
+Data parallel (a ``DistContext`` with a group): every rank takes part in
+``save``, which gathers every rank's rows of the env-batched leaves (by
+name, ``parallel/mesh.py``) and every rank's generator states (a leading
+rank axis) to rank 0, and only rank 0 writes (cat_tpu/rl/checkpoint.py:
+20-52). ``restore_local_shard`` gives each rank its own rows back
+(:110-154); a checkpoint of the same world size resumes bit for bit.
 """
 
 from __future__ import annotations
@@ -20,10 +27,15 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 from cat_tpu_torch.envs.types import EnvState
+from cat_tpu_torch.parallel import mesh
 from cat_tpu_torch.rl.normalize import RmsState
 from cat_tpu_torch.sim.engine import SimState
 
 SUFFIX = ".pt"
+# leaves added after checkpoints were first written, and the value a
+# checkpoint without one restores with (the reference's _fill_defaults,
+# cat_tpu/rl/checkpoint.py:156-166): no CoM shift
+ADDED_LEAVES = {"env.com_offset": torch.zeros_like}
 
 
 def _env_dict(es: EnvState) -> dict:
@@ -44,21 +56,39 @@ def _ppo_dict(ppo, opt_state: Optional[dict] = None) -> dict:
 
 
 def state_dict(ppo, es: EnvState,
-               generators: Mapping[str, torch.Generator] = None) -> dict:
-    """The checkpoint's tree: {"ppo": ..., "env": ..., "generators": ...}."""
-    return {"ppo": _ppo_dict(ppo), "env": _env_dict(es),
+               generators: Mapping[str, torch.Generator] = None,
+               dist=None) -> dict:
+    """The checkpoint's tree: {"ppo": ..., "env": ..., "generators": ...}.
+    With a group (every rank calls it): every rank's rows of the
+    env-batched leaves, in rank order, and every rank's generator states
+    stacked on a leading rank axis."""
+    tree = {"ppo": _ppo_dict(ppo), "env": _env_dict(es),
             "generators": {k: g.get_state()
                            for k, g in (generators or {}).items()}}
+    if dist is None or dist.group is None:
+        return tree
+    flat = flatten(tree)
+    for name, x in flat.items():
+        if mesh.is_batched(name):
+            flat[name] = mesh.gather_rows(x, dist)
+        elif name.startswith("generators."):
+            flat[name] = mesh.gather_rows(x[None], dist)
+    return _unflatten_into(tree, flat)
 
 
 def save(path: str, ppo, es: EnvState,
-         generators: Mapping[str, torch.Generator] = None) -> str:
+         generators: Mapping[str, torch.Generator] = None,
+         dist=None) -> str:
     """Write the checkpoint to ``path`` (``.pt`` appended if missing);
-    returns the file's path."""
+    returns the file's path. With a group every rank must call it, and
+    rank 0 alone writes."""
     out = path if path.endswith(SUFFIX) else path + SUFFIX
+    tree = state_dict(ppo, es, generators, dist)
+    if dist is not None and not dist.is_rank0:
+        return out
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     tmp = out + ".tmp"
-    torch.save(state_dict(ppo, es, generators), tmp)
+    torch.save(tree, tmp)
     os.replace(tmp, out)
     return out
 
@@ -133,12 +163,28 @@ def restore(path: str, ppo, es: EnvState,
     live ``ppo`` and ``es`` are the template: the saved tree must have
     their structure and each leaf their dtype and shape (``strict``), or
     keeps the live leaf where only the shape differs (not ``strict``)."""
+    return restore_local_shard(path, ppo, es, generators, 0, 1, strict)
+
+
+def restore_local_shard(path: str, ppo, es: EnvState,
+                        generators: Mapping[str, torch.Generator],
+                        rank: int, world_size: int,
+                        strict: bool = True) -> EnvState:
+    """``restore`` for rank ``rank`` of ``world_size``: an env-batched leaf
+    saved with ``world_size`` times the live rows gives this rank rows
+    [rank n, (rank + 1) n); the other leaves load as they are. The
+    generators take this rank's saved states when the checkpoint was
+    written by ``world_size`` processes; else they keep their live states,
+    as in a fresh run, and rank 0 prints so."""
     saved = load(path)
     stepped = bool(saved.get("ppo", {}).get("opt", {}).get("state"))
     want = {"ppo": _ppo_dict(ppo, _adam_template(ppo, stepped)),
             "env": _env_dict(es)}
     got = {k: saved.get(k) for k in want}
     fw, fg = flatten(want), flatten(got)
+    for name, fill in ADDED_LEAVES.items():
+        if name in fw and name not in fg:
+            fg[name] = fill(fw[name])
     if set(fw) != set(fg):
         raise ValueError(
             f"checkpoint {path}: its tree does not match the live state: "
@@ -155,6 +201,10 @@ def restore(path: str, ppo, es: EnvState,
         if g.dtype != w.dtype:
             raise ValueError(f"checkpoint {path}: leaf {name} has dtype "
                              f"{g.dtype}, expected {w.dtype}")
+        if (g.shape != w.shape and mesh.is_batched(name) and g.dim() >= 1
+                and g.shape[0] == world_size * w.shape[0]
+                and g.shape[1:] == w.shape[1:]):
+            g = g[rank * w.shape[0]:(rank + 1) * w.shape[0]]
         if g.shape != w.shape:
             if strict:
                 raise ValueError(
@@ -190,11 +240,22 @@ def restore(path: str, ppo, es: EnvState,
         p["next_obs"], p["next_done"], p["next_true_done"])
     e = tree["env"]
     es = EnvState(**dict(e, sim=SimState(**e["sim"])))
+    fresh = []
     for name, g in (generators or {}).items():
         if name not in saved.get("generators", {}):
             raise ValueError(f"checkpoint {path}: no state of generator "
                              f"{name!r}")
-        g.set_state(saved["generators"][name])
+        state = saved["generators"][name]
+        if state.dim() == 1 and world_size == 1:
+            g.set_state(state)
+        elif state.dim() == 2 and state.shape[0] == world_size:
+            g.set_state(state[rank].clone())
+        else:
+            fresh.append(name)
+    if fresh and rank == 0:
+        print(f"restore: {path} was written by another number of processes "
+              f"than {world_size}; the generators {fresh} start as in a "
+              "fresh run", flush=True)
     return es
 
 

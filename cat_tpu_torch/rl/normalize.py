@@ -41,5 +41,14 @@ def rms_update(state: RmsState, x: torch.Tensor) -> RmsState:
     return rms_merge_moments(state, *rms_moments(x))
 
 
+def rms_stats(state: RmsState):
+    """The raw moments (sum x, sum x^2, count) a state has pooled: the
+    inverse of ``rms_merge_moments``, from which moment deltas since an
+    earlier state are formed."""
+    s1 = state.mean * state.count
+    s2 = (state.var + torch.square(state.mean)) * state.count
+    return s1, s2, state.count
+
+
 def rms_normalize(state: RmsState, x: torch.Tensor, eps: float = 1e-8):
     return (x - state.mean) / torch.sqrt(state.var + eps)

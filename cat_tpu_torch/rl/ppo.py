@@ -18,6 +18,23 @@ One ``train_iteration`` is:
 The learning rate lives in one device tensor that Adam reads: the
 adaptive-KL rule updates it on the device from a minibatch's (or an
 epoch's) KL, so the host never waits for the KL.
+
+Data parallel (``dist``, a ``parallel.distributed.DistContext`` with a
+group): each rank steps its own envs, and an iteration crosses ranks with
+``1 + updates_epochs x (1 + n_minibatches)`` all_reduces, as the
+reference's shard_map'd iteration (cat_tpu/rl/ppo.py:21-43) does:
+  * the rollout crosses none: each rank updates its obs normaliser and its
+    CaT running maxes on its own envs;
+  * one boundary table an iteration (``_boundary_merge``): the obs
+    normaliser's moment deltas, the value and return moments, the episode
+    metrics and the running maxes;
+  * one an epoch: the (n_minibatches, 2) advantage moments;
+  * one a minibatch: the gradients and the 5 loss statistics, averaged
+    before the clip, as the reference clips the averaged gradient.
+Each rank takes ``minibatch_size // world_size`` rows a minibatch. The
+network starts from the base seed on every rank and rank 0's parameters
+are broadcast once; the state every rank must agree on (parameters, Adam,
+normalisers, running maxes, metrics) comes out bit for bit equal.
 """
 
 from __future__ import annotations
@@ -29,10 +46,11 @@ import torch
 
 from cat_tpu_torch.envs.env import CatEnv
 from cat_tpu_torch.envs.types import EnvState
+from cat_tpu_torch.parallel import mesh
 
 from . import networks
-from .normalize import (rms_init, rms_merge_moments, rms_moments,
-                        rms_normalize, rms_update)
+from .normalize import (RmsState, rms_init, rms_merge_moments, rms_moments,
+                        rms_normalize, rms_stats, rms_update)
 
 
 LR_MODES = ("linear", "constant", "adaptive_kl", "adaptive_kl_epoch")
@@ -121,11 +139,15 @@ class PPO:
     """Learner state (network, Adam, normalisers, rollout carry) and the
     training iteration."""
 
-    def __init__(self, env: CatEnv, cfg: PpoCfg, generator: torch.Generator):
+    def __init__(self, env: CatEnv, cfg: PpoCfg, generator: torch.Generator,
+                 dist=None):
         if cfg.resolved_lr_mode not in LR_MODES:
             raise ValueError(f"lr_mode {cfg.lr_mode!r}: one of auto, "
                              f"{', '.join(LR_MODES)}")
-        self.env, self.cfg = env, cfg
+        if dist is not None and cfg.minibatch_size % dist.world_size:
+            raise ValueError(f"minibatch_size {cfg.minibatch_size} does not "
+                             f"divide over {dist.world_size} processes")
+        self.env, self.cfg, self.dist = env, cfg, dist
         dev = env.device
         net_cls = (networks.SharedActorCritic if cfg.shared_model
                    else networks.ActorCritic)
@@ -143,11 +165,19 @@ class PPO:
         self.value_rms = rms_init((), dev)
         self.iteration = 0
         self.next_obs = self.next_done = self.next_true_done = None
+        if dist is not None:
+            mesh.broadcast_(list(self.net.parameters()), 0, dist)
 
     def start(self, first_obs_raw: torch.Tensor):
-        """Warm the obs normaliser on the reset observation and set the
-        rollout carry."""
-        self.obs_rms = rms_update(self.obs_rms, first_obs_raw)
+        """Warm the obs normaliser on the reset observation (of every
+        rank's envs, pooled) and set the rollout carry."""
+        moments = rms_moments(first_obs_raw)
+        if self.dist is not None:
+            k = moments[0].shape[0]
+            flat = mesh.all_sum_(torch.cat([moments[0], moments[1],
+                                            moments[2][None]]), self.dist)
+            moments = flat[:k], flat[k:2 * k], flat[2 * k]
+        self.obs_rms = rms_merge_moments(self.obs_rms, *moments)
         self.next_obs = rms_normalize(self.obs_rms, first_obs_raw)
         n = first_obs_raw.shape[0]
         self.next_done = torch.zeros(n, device=first_obs_raw.device)
@@ -207,15 +237,62 @@ class PPO:
         value, entropy, approx KL, clip fraction)."""
         if lr is not None:
             self.lr.fill_(lr)
+        cfg = self.cfg
         self.opt.zero_grad(set_to_none=False)
         total, aux = self.loss(mb, adv_mom)
         total.backward()
-        clip_grad_global_norm_(list(self.net.parameters()),
-                               self.cfg.max_grad_norm)
+        params = list(self.net.parameters())
+        aux = torch.stack([a.detach() for a in aux])
+        if self.dist is not None:
+            # the gradients and the loss statistics, averaged in one
+            # all_reduce; the clip below reads the averaged gradient
+            flat = mesh.all_mean_(torch.cat(
+                [p.grad.reshape(-1) for p in params] + [aux]), self.dist)
+            offset = 0
+            for p in params:
+                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+            aux = flat[offset:]
+            total = aux[0] - cfg.ent_coef * aux[2] + aux[1] * cfg.vf_coef
+        clip_grad_global_norm_(params, cfg.max_grad_norm)
         self.opt.step()
-        if self.cfg.resolved_lr_mode == "adaptive_kl":
+        if cfg.resolved_lr_mode == "adaptive_kl":
             self.step_lr(aux[3])
-        return torch.stack([total.detach()] + [a.detach() for a in aux])
+        return torch.cat([total.detach()[None], aux])
+
+    def _boundary_merge(self, obs_rms0: RmsState, obs_rms_l: RmsState, moms,
+                        rmax_l, scal, sum_scaled):
+        """The iteration's one cross-rank collective (port of
+        cat_tpu/rl/ppo.py:150-196): the sums (the obs normaliser's moment
+        deltas since ``obs_rms0``, the value and return moments ``moms``,
+        the scalars ``scal``) and the running maxes ``rmax_l`` go into
+        this rank's row of a (world_size, D) table, zero elsewhere, and
+        one all_reduce(SUM) gives every rank every row; the sums finish
+        with ``.sum(0)``, the maxes with ``.max(0)``. Returns the merged
+        (obs_rms, moms, running maxes, scal x sum_scaled)."""
+        s1_0, s2_0, n_0 = rms_stats(obs_rms0)
+        s1_l, s2_l, n_l = rms_stats(obs_rms_l)
+        (vs1, vs2, vn), (rs1, rs2, rn) = moms
+        sums = torch.cat([s1_l - s1_0, s2_l - s2_0, (n_l - n_0)[None],
+                          torch.stack([vs1, vs2, vn, rs1, rs2, rn]), scal])
+        row = torch.cat([sums, rmax_l])
+        table = torch.zeros(self.dist.world_size, row.shape[0],
+                            dtype=row.dtype, device=row.device)
+        table[self.dist.rank] = row
+        mesh.all_sum_(table, self.dist)
+        m = sums.shape[0]
+        gsums = table[:, :m].sum(0)
+        rmax_g = table[:, m:].amax(0)
+        k = s1_0.shape[0]
+        n_g = n_0 + gsums[2 * k]
+        mean_g = (s1_0 + gsums[:k]) / n_g
+        ex2_g = (s2_0 + gsums[k:2 * k]) / n_g
+        obs_rms_g = RmsState(
+            mean=mean_g, var=torch.clamp(ex2_g - torch.square(mean_g),
+                                         min=0.0), count=n_g)
+        vm = gsums[2 * k + 1:2 * k + 7]
+        return (obs_rms_g, ((vm[0], vm[1], vm[2]), (vm[3], vm[4], vm[5])),
+                rmax_g, gsums[2 * k + 7:] * sum_scaled)
 
     def train_iteration(self, es: EnvState, gen: torch.Generator
                         ) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
@@ -240,7 +317,6 @@ class PPO:
             obs_rms = rms_update(obs_rms, next_obs_raw)
             obs = rms_normalize(obs_rms, next_obs_raw)
             done, tdone = next_done, time_out.float()
-        self.obs_rms = obs_rms
         self.next_obs, self.next_done, self.next_true_done = obs, done, tdone
         b_obs, b_act, b_logp, b_val, b_rew, b_done, b_tdone = (
             torch.stack(x) for x in zip(*traj))
@@ -260,15 +336,34 @@ class PPO:
 
         es, ep_metrics = env.drain_metrics(es)
         mean_reward, mean_done = torch.mean(b_rew), torch.mean(b_done)
+        v_mom, r_mom = rms_moments(b_vals), rms_moments(b_ret)
+        if self.dist is not None:
+            # the iteration's boundary: episode metrics as the plain mean
+            # of the ranks' means (Episode/count summed), as the reference
+            keys = sorted(ep_metrics)
+            inv = 1.0 / self.dist.world_size
+            obs_rms, (v_mom, r_mom), rmax, scal = self._boundary_merge(
+                self.obs_rms, obs_rms, (v_mom, r_mom), es.running_max,
+                torch.stack([ep_metrics[k].float() for k in keys]
+                            + [mean_reward, mean_done]),
+                torch.tensor([1.0 if k == "Episode/count" else inv
+                              for k in keys] + [inv, inv],
+                             device=mean_reward.device))
+            es = es._replace(running_max=rmax)
+            ep_metrics = dict(zip(keys, scal[:len(keys)].unbind()))
+            mean_reward, mean_done = scal[len(keys)], scal[len(keys) + 1]
+        self.obs_rms = obs_rms
 
         # ---- value / return normalisation, in sequence ----
-        self.value_rms = rms_merge_moments(self.value_rms, *rms_moments(b_vals))
+        self.value_rms = rms_merge_moments(self.value_rms, *v_mom)
         b_vals = rms_normalize(self.value_rms, b_vals)
-        self.value_rms = rms_merge_moments(self.value_rms, *rms_moments(b_ret))
+        self.value_rms = rms_merge_moments(self.value_rms, *r_mom)
         b_ret = rms_normalize(self.value_rms, b_ret)
 
-        # ---- minibatch SGD ----
-        n_mb = nb // cfg.minibatch_size
+        # ---- minibatch SGD: each rank takes its share of a minibatch ----
+        mb_size = cfg.minibatch_size // (self.dist.world_size if self.dist
+                                         else 1)
+        n_mb = nb // mb_size
         if n_mb == 0:
             raise ValueError(f"minibatch_size {cfg.minibatch_size} exceeds "
                              f"the batch of {nb} samples")
@@ -277,15 +372,15 @@ class PPO:
         for _ in range(cfg.updates_epochs):
             perm = torch.randperm(nb, generator=gen, device=b_obs.device)
             pdata = [x[perm] for x in data]
-            adv_mb = pdata[3][:n_mb * cfg.minibatch_size].reshape(
-                n_mb, cfg.minibatch_size)
+            adv_mb = pdata[3][:n_mb * mb_size].reshape(n_mb, mb_size)
             adv_moms = torch.stack([torch.mean(adv_mb, dim=1),
                                     torch.mean(torch.square(adv_mb), dim=1)],
                                    dim=1)
+            if self.dist is not None:
+                mesh.all_mean_(adv_moms, self.dist)
             epoch = torch.stack([
-                self.sgd_step([x[i * cfg.minibatch_size:
-                                 (i + 1) * cfg.minibatch_size] for x in pdata],
-                              adv_moms[i])
+                self.sgd_step([x[i * mb_size:(i + 1) * mb_size]
+                               for x in pdata], adv_moms[i])
                 for i in range(n_mb)])
             if cfg.resolved_lr_mode == "adaptive_kl_epoch":
                 self.step_lr(torch.mean(epoch[:, 4]))   # the epoch's mean KL

@@ -4,7 +4,8 @@
       [--agent clean_rl|rl_games|skrl] [--max_iterations N] [--seed 1] \
       [--logdir logs] [--run_name NAME] [--checkpoint RUN/ckpt_K] \
       [--writer tensorboard|wandb|none] [--override k=v ...] \
-      [--env_override a.b=v ...] [--device cpu]
+      [--env_override a.b=v ...] [--device cpu] [--single_chip] \
+      [--coordinator HOST:PORT --num_processes N --process_id I]
 
 A run logs under <logdir>/<agent>/<task>/<run_name>/: ``config.json``,
 ``metrics.jsonl`` (one line an iteration, the reference's keys),
@@ -14,7 +15,16 @@ goes on to ``--max_iterations``. On the CPU at a few envs, shrink the
 minibatch to fit the batch, e.g. ``--num_envs 8 --device cpu --override
 num_steps=4 minibatch_size=16``.
 
-Runs on the first CUDA card unless ``--device cpu`` is given.
+Runs on the CUDA cards unless ``--device cpu`` is given, one process a
+card, the env batch split over the processes (``rl/ppo.py``: the
+reference's data-parallel iteration): under torchrun (``torchrun
+--nproc_per_node N -m cat_tpu_torch.train ...``) it joins torchrun's group;
+with ``--coordinator``, ``--num_processes`` and ``--process_id`` (the
+reference's flags) it joins that group; started alone where more than one
+card is visible it starts one process a card itself, unless
+``--single_chip``. ``--num_envs`` and ``minibatch_size`` are global and
+must divide by the number of processes. Rank 0 alone writes the logs, the
+prints and the checkpoints; every rank takes part in a checkpoint's save.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ import numpy as np
 import torch
 
 from cat_tpu_torch import resolve_device
+from cat_tpu_torch.parallel import distributed
+from cat_tpu_torch.parallel.distributed import DistContext
 from cat_tpu_torch.rl import agent_cfgs, checkpoint
 from cat_tpu_torch.rl.ppo import PPO, PpoCfg
 from cat_tpu_torch.tasks import registry
@@ -62,6 +74,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--env_override", nargs="*", default=[],
                    help="env cfg dotted-path overrides (e.g. "
                         "events.push_enabled=False)")
+    p.add_argument("--single_chip", action="store_true",
+                   help="one process on one card, even where more are "
+                        "visible")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0's store (or an init_method "
+                        "URL) to train over several processes")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -81,10 +101,14 @@ def agent_cfg(args, spec) -> PpoCfg:
 class Trainer:
     """The state of a training run: the env, the learner, the envs' state
     and the run's generators ("env" draws the initial state, "ppo" every
-    draw of an iteration)."""
+    draw of an iteration). With ``dist`` (a group), this rank's share of
+    the envs: its generators are seeded from the base seed + its rank, the
+    network from the base seed."""
 
-    def __init__(self, args):
-        self.device = resolve_device(args.device)
+    def __init__(self, args, dist: Optional[DistContext] = None):
+        self.dist = dist or DistContext(0, 1, args.seed, True, None,
+                                        resolve_device(args.device))
+        self.device = self.dist.device
         spec = registry.get(args.task)
         self.cfg = agent_cfg(args, spec)
         self.num_envs = args.num_envs or 4096
@@ -92,14 +116,22 @@ class Trainer:
                                  overrides=tuple(args.env_override),
                                  device=self.device)
         self.generators = {
-            "env": torch.Generator(device=self.device).manual_seed(args.seed),
+            "env": torch.Generator(device=self.device).manual_seed(
+                self.dist.seed),
             "ppo": torch.Generator(device=self.device).manual_seed(
-                args.seed + 0x5EED),
+                args.seed + 0x5EED + self.dist.rank),
         }
-        self.es = self.env.init(self.generators["env"], self.num_envs)
+        self.es = self.env.init(
+            self.generators["env"],
+            distributed.local_env_count(self.num_envs, self.dist))
         self.ppo = PPO(self.env, self.cfg,
-                       torch.Generator().manual_seed(args.seed))
+                       torch.Generator().manual_seed(args.seed),
+                       dist=self.grouped)
         self.ppo.start(self.env.observe(self.es, self.generators["env"]))
+
+    @property
+    def grouped(self) -> Optional[DistContext]:
+        return self.dist if self.dist.group is not None else None
 
     def train_iteration(self) -> Dict[str, float]:
         self.es, metrics = self.ppo.train_iteration(self.es,
@@ -108,11 +140,14 @@ class Trainer:
         return dict(zip(metrics, values))
 
     def save(self, path: str) -> str:
-        return checkpoint.save(path, self.ppo, self.es, self.generators)
+        """Every rank calls it; rank 0 writes."""
+        return checkpoint.save(path, self.ppo, self.es, self.generators,
+                               self.grouped)
 
     def restore(self, path: str, strict: bool = True):
-        self.es = checkpoint.restore(path, self.ppo, self.es, self.generators,
-                                     strict=strict)
+        self.es = checkpoint.restore_local_shard(
+            path, self.ppo, self.es, self.generators, self.dist.rank,
+            self.dist.world_size, strict)
 
 
 def _json_default(o):
@@ -124,32 +159,83 @@ def _json_default(o):
     return str(o)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
-    """Train; returns the metrics of every iteration run (floats)."""
-    args = parse_args(argv)
-    tr = Trainer(args)
-    cfg = tr.cfg
-    print(tr.env.cset.table(), flush=True)
+def _spawns(args) -> bool:
+    """Started alone, with no group, where more than one card is visible:
+    train on all of them (the reference's default uses every device)."""
+    return (not args.single_chip and args.coordinator is None
+            and "RANK" not in os.environ
+            and torch.device(args.device).type == "cuda"
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1)
 
+
+def spawn(argv: Sequence[str], nprocs: int, backend: Optional[str] = None,
+          coordinator: Optional[str] = None,
+          timeout: Optional[float] = None):
+    """Train over ``nprocs`` new processes as one group: ``main(argv)``
+    with the coordinator flags added, in each (one a card, or on the CPU
+    with ``--device cpu``)."""
+    distributed.spawn(_spawned, nprocs, (list(argv), nprocs, backend),
+                      coordinator, timeout)
+
+
+def _spawned(rank: int, coordinator: str, argv: List[str], nprocs: int,
+             backend: Optional[str]):
+    main([*argv, "--coordinator", coordinator, "--num_processes",
+          str(nprocs), "--process_id", str(rank)], backend)
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         backend: Optional[str] = None) -> List[Dict[str, float]]:
+    """Train; returns the metrics of every iteration this process ran
+    (floats; none where it started one process a card). ``backend``: the
+    group's, where one is joined (default NCCL on cuda, gloo on cpu)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if _spawns(args):
+        spawn(argv, torch.cuda.device_count(), backend)
+        return []
+    dist = distributed.maybe_initialize(
+        args.seed, args.coordinator, args.num_processes, args.process_id,
+        backend, args.device)
+    try:
+        return _train(args, dist)
+    finally:
+        distributed.close(dist)
+
+
+def _train(args, dist: DistContext) -> List[Dict[str, float]]:
+    tr = Trainer(args, dist)
+    cfg = tr.cfg
+
+    def say(msg: str):
+        if dist.is_rank0:
+            print(msg, flush=True)
+
+    say(tr.env.cset.table())
     run_name = args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S")
     run_path = os.path.join(args.logdir, args.agent, args.task, run_name)
-    os.makedirs(run_path, exist_ok=True)
-    with open(os.path.join(run_path, "config.json"), "w") as f:
-        json.dump({"task": args.task, "agent": args.agent,
-                   "num_envs": tr.num_envs, "seed": args.seed,
-                   "device": str(tr.device),
-                   "agent_cfg": dataclasses.asdict(cfg),
-                   "env_cfg": dataclasses.asdict(tr.env.cfg)},
-                  f, indent=1, default=_json_default)
+    if dist.is_rank0:
+        os.makedirs(run_path, exist_ok=True)
+        with open(os.path.join(run_path, "config.json"), "w") as f:
+            json.dump({"task": args.task, "agent": args.agent,
+                       "num_envs": tr.num_envs, "seed": args.seed,
+                       "device": str(tr.device),
+                       "devices": dist.world_size,
+                       "processes": dist.world_size,
+                       "agent_cfg": dataclasses.asdict(cfg),
+                       "env_cfg": dataclasses.asdict(tr.env.cfg)},
+                      f, indent=1, default=_json_default)
     if args.checkpoint:
         tr.restore(args.checkpoint)
-        print(f"resumed from {args.checkpoint} at iteration "
-              f"{tr.ppo.iteration}", flush=True)
+        say(f"resumed from {args.checkpoint} at iteration "
+            f"{tr.ppo.iteration}")
 
-    print(f"training {args.task} ({args.agent}): {tr.num_envs} envs on "
-          f"{tr.device}, to iteration {cfg.num_iterations}; logs at "
-          f"{run_path}", flush=True)
-    logger = MetricLogger(run_path, writer=args.writer)
+    over = f" and {dist.world_size - 1} more process(es)" if dist.group else ""
+    say(f"training {args.task} ({args.agent}): {tr.num_envs} envs on "
+        f"{tr.device}{over}, to iteration {cfg.num_iterations}; logs at "
+        f"{run_path}")
+    logger = (MetricLogger(run_path, writer=args.writer) if dist.is_rank0
+              else None)
     steps_per_iter = cfg.num_steps * tr.num_envs
     history = []
     last_ckpt = args.checkpoint
@@ -161,30 +247,33 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
             loss = metrics["Loss/mean_surrogate_loss"]
             if not (math.isfinite(loss)
                     and math.isfinite(metrics["Train/mean_reward_per_step"])):
+                # every rank sees the merged metrics, and takes part in the
+                # save
                 bad = tr.save(os.path.join(run_path, f"ckpt_diverged_{it}"))
-                print(f"FATAL: non-finite loss at iteration {it} "
-                      f"(loss={loss}); diverged state dumped to {bad}",
-                      flush=True)
+                say(f"FATAL: non-finite loss at iteration {it} "
+                    f"(loss={loss}); diverged state dumped to {bad}")
                 if last_ckpt:
-                    print(f"resume from the last good checkpoint with:\n"
-                          f"  --checkpoint {last_ckpt}", flush=True)
+                    say(f"resume from the last good checkpoint with:\n"
+                        f"  --checkpoint {last_ckpt}")
                 sys.exit(1)
             metrics["Perf/env_steps_per_sec"] = steps_per_iter / dt
             metrics["Perf/iter_seconds"] = dt
-            logger.log(metrics, it)
+            if logger is not None:
+                logger.log(metrics, it)
             history.append(metrics)
             if it == 1 or it % 10 == 0 or it == cfg.num_iterations:
-                print(f"iter {it:5d} | {steps_per_iter / dt:9.0f} steps/s | "
-                      f"rew/step {metrics['Train/mean_reward_per_step']:.4f}"
-                      f" | ep_len {metrics['Episode/length']:.0f} | loss "
-                      f"{loss:.4f}", flush=True)
+                say(f"iter {it:5d} | {steps_per_iter / dt:9.0f} steps/s | "
+                    f"rew/step {metrics['Train/mean_reward_per_step']:.4f}"
+                    f" | ep_len {metrics['Episode/length']:.0f} | loss "
+                    f"{loss:.4f}")
             if it % cfg.save_interval == 0:
                 last_ckpt = tr.save(os.path.join(run_path, f"ckpt_{it}"))
-                print(f"saved {last_ckpt}", flush=True)
+                say(f"saved {last_ckpt}")
         tr.save(os.path.join(run_path, "ckpt_final"))
     finally:
-        logger.close()
-    print(f"done; logs at {run_path}", flush=True)
+        if logger is not None:
+            logger.close()
+    say(f"done; logs at {run_path}")
     return history
 
 

@@ -21,7 +21,32 @@ Phases, each printed with its elapsed seconds:
      captured from the raw engine on the production rough terrain (Solo12)
      and on flat ground (Go2);
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
-     2 PPO iterations; pgs_bj must launch 2 x 24 x 4 times;
+     2 PPO iterations, a checkpoint each; pgs_bj must launch 2 x 24 x 4
+     times;
+  train-nccl: the same run through the grouped code path (``--coordinator``
+     with one process, so every collective runs in NCCL on the card), one
+     iteration: 36 all_reduces and no other collective in it, 96
+     launches, and its parameters equal the train phase's after its first
+     iteration (rtol 1e-5; the obs normaliser, rebuilt from pooled
+     moments, differs by rounding);
+  train-dist: two processes share the card under gloo, 2048 envs each
+     (4096 global), the same recipe, 2 iterations with a checkpoint each,
+     then both resume from ckpt_1 and run iteration 2 again: after every
+     iteration the parameters, Adam's moments, both normalisers, the
+     running maxes and the metrics are equal bit for bit on both ranks;
+     each rank launches pgs_bj 96 times an iteration; rank 0 alone writes,
+     its checkpoint holds 4096 env rows and both ranks' generator states;
+     the resumed ckpt_2 equals the first bit for bit; each rank's
+     iteration seconds and card busy share (the busy time of the resumed
+     iteration 2, under the profiler, over the first run's iteration 2)
+     are printed: two ranks sharing one card, not a scaling figure; each
+     iteration of each rank makes 36 all_reduces and no other collective;
+  train-dr: Solo12-CaT-Flat-v0 at 4096 envs with the CoM event on the base
+     (``events.com_displacement=0.05 events.com_bodies=('base_link',)``),
+     one iteration (96 launches): the offsets are (4096, nbody, 3), within
+     +-0.05, on the base's row alone and differ across envs, and from one
+     seed the qpos after 5 control steps differs from the env without the
+     event by more than 1e-5;
   engine-gs: the raw engine with the default SolverParams (GS-5) on the
      production rough terrain, 4096 Solo12s dropped on patch centres hold
      their default pose for 100 control steps; pgs_gs must launch 400
@@ -57,8 +82,9 @@ Phases, each printed with its elapsed seconds:
      its export by ``rl/export.py``: the TorchScript module on the card
      agrees with the actor.
 Training runs log to a temporary directory, never inside the repo.
-Every launch count is set to 0 just before its path and read just after;
-the JSON line's launches are their sums over all paths. The last lines are
+Every launch count is set to 0 just before its path and read just after
+(in the train-dist processes, before each iteration); the JSON line's
+launches are their sums over all paths and processes. The last lines are
 a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
@@ -96,6 +122,10 @@ PLAY_OVERRIDES = (f"commands.lin_vel_x=({PLAY_VX},{PLAY_VX})",
                   "commands.rel_standing_envs=0.0",
                   "events.push_enabled=False", "noise.enabled=False")
 GO2_SETTLE = 75      # engine-go2: control steps (tests/test_go2.py's fixture)
+DIST_RANKS = 2       # train-dist: processes sharing the card
+# train-dr: the randomize_body_coms event on the base
+DR_OVERRIDES = ("events.com_displacement=0.05",
+                "events.com_bodies=('base_link',)")
 # play-go2 gate, set from the JAX package's own play of runs/go2_r4 at this
 # command (tests/test_torch_go2.py run as a script, 48 envs on the CPU,
 # 200 steps): no env survives 200 steps (the policy's thighs touch down,
@@ -416,6 +446,323 @@ def train_phase(phase, argv, kernel, train, iters):
     return launches, history
 
 
+def learner_digest(tr, metrics) -> str:
+    """sha256 of what every rank must agree on after an iteration: the
+    parameters, Adam's moments, both normalisers, the running maxes, the
+    learning rate and the metrics."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    opt = tr.ppo.opt.state_dict()["state"]
+    tensors = (list(tr.ppo.net.state_dict().values())
+               + [opt[i][k] for i in sorted(opt)
+                  for k in ("exp_avg", "exp_avg_sq")]
+               + list(tr.ppo.obs_rms) + list(tr.ppo.value_rms)
+               + [tr.es.running_max, tr.ppo.lr])
+    for t in tensors:
+        digest.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    digest.update(json.dumps(metrics, sort_keys=True).encode())
+    return digest.hexdigest()
+
+
+class Collectives:
+    """Counts torch.distributed's collectives while installed: all_reduce,
+    broadcast and any other (``counts``), and the host seconds spent in
+    them (``seconds``: a call returns once its result is in place, the
+    other ranks' wait included)."""
+    OTHERS = ("all_gather", "all_gather_into_tensor", "all_gather_object",
+              "reduce_scatter", "reduce_scatter_tensor", "reduce", "gather",
+              "scatter", "all_to_all", "all_to_all_single", "barrier",
+              "send", "recv", "broadcast_object_list")
+
+    def __enter__(self):
+        import torch.distributed as tdist
+
+        self.tdist, self.real = tdist, {}
+        self.counts = {"all_reduce": 0, "broadcast": 0, "other": 0}
+        self.seconds = 0.0
+        for name in ("all_reduce", "broadcast") + self.OTHERS:
+            real = self.real[name] = getattr(tdist, name)
+            key = name if name in self.counts else "other"
+
+            def counted(*a, _real=real, _key=key, **k):
+                self.counts[_key] += 1
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+            setattr(tdist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.tdist, name, real)
+
+
+class Writes:
+    """Records the files this process opens for writing or torch.save's
+    under ``root`` while installed."""
+
+    def __init__(self, root):
+        self.root, self.paths = os.path.abspath(root), []
+
+    def _note(self, path):
+        path = os.path.abspath(os.fspath(path))
+        if path.startswith(self.root):
+            self.paths.append(path)
+
+    def __enter__(self):
+        import builtins
+
+        import torch
+
+        self.builtins, self.torch = builtins, torch
+        self.open, self.save = builtins.open, torch.save
+
+        def opened(file, mode="r", *a, **k):
+            if isinstance(file, (str, os.PathLike)) and any(
+                    c in mode for c in "wax+"):
+                self._note(file)
+            return self.open(file, mode, *a, **k)
+
+        def saved(obj, f, *a, **k):
+            if isinstance(f, (str, os.PathLike)):
+                self._note(f)
+            return self.save(obj, f, *a, **k)
+
+        builtins.open, torch.save = opened, saved
+        return self
+
+    def __exit__(self, *exc):
+        self.builtins.open, self.torch.save = self.open, self.save
+
+
+def dist_worker(rank, coordinator, argv, resume_argv, resume_coordinator,
+                logdir, out):
+    """One process of train-dist: ``train.main`` over the group of
+    DIST_RANKS processes sharing the card under gloo, then again resumed
+    from ckpt_1. Writes its report (per iteration: pgs_bj launches, the
+    collectives, host seconds, the learner digest; the files it wrote; the
+    card busy time of the resumed iteration, under torch.profiler) to
+    ``out/rank<rank>.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cat_tpu_torch import train
+    from cat_tpu_torch.ops import pgs
+
+    report = {"iterations": []}
+    real = train.Trainer.train_iteration
+    profiled = {"on": False}
+
+    def traced(self):
+        pgs.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Collectives() as calls:
+            if profiled["on"]:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    metrics = real(self)
+                    torch.cuda.synchronize()
+                report["busy_s"] = sum(
+                    e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            else:
+                metrics = real(self)
+                torch.cuda.synchronize()
+        report["iterations"].append({
+            "launches": pgs.KERNEL.launches, "collectives": calls.counts,
+            "collective_s": calls.seconds,
+            "seconds": time.perf_counter() - t0,
+            "digest": learner_digest(self, metrics), "metrics": metrics})
+        return metrics
+
+    train.Trainer.train_iteration = traced
+    flags = ["--num_processes", str(DIST_RANKS), "--process_id", str(rank)]
+    with Writes(logdir) as writes:
+        train.main([*argv, "--coordinator", coordinator, *flags], "gloo")
+        profiled["on"] = True
+        train.main([*resume_argv, "--coordinator", resume_coordinator,
+                    *flags], "gloo")
+    report["writes"] = sorted(set(writes.paths))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def train_nccl_phase(logdir, flat_dir) -> int:
+    """train-nccl (module docstring); returns its pgs_bj launches."""
+    from cat_tpu_torch import train
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.parallel import distributed
+    from cat_tpu_torch.rl import checkpoint
+
+    phase = "train-nccl"
+    real_iteration = train.Trainer.train_iteration
+    calls, seconds = [], []
+
+    def counted(self):
+        with Collectives() as c:
+            metrics = real_iteration(self)
+        calls.append(c.counts)
+        seconds.append(c.seconds)
+        return metrics
+
+    train.Trainer.train_iteration = counted
+    try:
+        launches, _ = train_phase(
+            phase, train_argv(
+                "Solo12-CaT-Flat-v0", logdir, 1, "--run_name", "nccl",
+                "--override", "save_interval=1", "--coordinator",
+                distributed.free_coordinator(), "--num_processes", "1",
+                "--process_id", "0"), pgs.KERNEL, train, 1)
+    finally:
+        train.Trainer.train_iteration = real_iteration
+    grouped = checkpoint.load(os.path.join(flat_dir, "nccl", "ckpt_1"))
+    alone = checkpoint.load(os.path.join(flat_dir, "flat", "ckpt_1"))
+    dev_p = max((grouped["ppo"]["net"][k] - v).abs().max().item()
+                for k, v in alone["ppo"]["net"].items())
+    bad_p = sum(int(((grouped["ppo"]["net"][k] - v).abs()
+                     > 1e-5 * v.abs()).sum())
+                for k, v in alone["ppo"]["net"].items())
+    dev_rms = max((grouped["ppo"]["obs_rms"][k] - v).abs().max().item()
+                  for k, v in alone["ppo"]["obs_rms"].items())
+    log(phase, f"collectives in the iteration {calls} (expected 36 "
+               f"all_reduce, nothing else), {seconds[0]:.4f} s in them; "
+               f"parameters after iteration 1 "
+               f"against the train phase's: max abs deviation "
+               f"{dev_p:.3g}, {bad_p} values outside rtol 1e-5; obs "
+               f"normaliser max abs deviation {dev_rms:.3g}")
+    if calls != [{"all_reduce": 36, "broadcast": 0, "other": 0}] or bad_p:
+        raise RuntimeError("the grouped path under NCCL does not train "
+                           "as the one-card path")
+    return launches
+
+
+def train_dist_phase(logdir, flat_dir) -> int:
+    """train-dist (module docstring); returns the pgs_bj launches of
+    both processes."""
+    from cat_tpu_torch.parallel import distributed
+    from cat_tpu_torch.rl import checkpoint
+
+    phase = "train-dist"
+    out = os.path.join(logdir, "dist-reports")
+    os.makedirs(out)
+    dist_argv = train_argv("Solo12-CaT-Flat-v0", logdir, PPO_ITERS,
+                           "--run_name", "dist", "--override",
+                           "save_interval=1")
+    dist_dir = os.path.join(flat_dir, "dist")
+    resume_argv = train_argv("Solo12-CaT-Flat-v0", logdir, PPO_ITERS,
+                             "--run_name", "dist-resumed", "--override",
+                             "save_interval=1", "--checkpoint",
+                             os.path.join(dist_dir, "ckpt_1"))
+    t0 = time.perf_counter()
+    distributed.spawn(dist_worker, DIST_RANKS,
+                      (dist_argv, resume_argv,
+                       distributed.free_coordinator(), logdir, out),
+                      timeout=DEADLINE_S / 2)
+    reports = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    log(phase, f"{DIST_RANKS} processes on one card (gloo), both runs, "
+               f"{time.perf_counter() - t0:.1f} s with their start")
+    for r, rep in enumerate(reports):
+        its = rep["iterations"]
+        log(phase, f"rank {r}: iteration seconds "
+                   f"{[round(i['seconds'], 3) for i in its]} (2 ranks "
+                   f"sharing one card; the last one, the resumed iteration "
+                   f"2, under the profiler), launches "
+                   f"{[i['launches'] for i in its]}, collectives "
+                   f"{its[0]['collectives']} taking "
+                   f"{[round(i['collective_s'], 3) for i in its]} s; card "
+                   f"busy {rep['busy_s']:.4f}"
+                   f" s in iteration 2, "
+                   f"{rep['busy_s'] / its[1]['seconds'] * 100:.1f}% of its "
+                   f"unprofiled {its[1]['seconds']:.3f} s; wrote "
+                   f"{len(rep['writes'])} files")
+        check_finite(f"{phase} rank {r}", [
+            dict(i["metrics"], **{"Perf/iter_seconds": i["seconds"],
+                                  "Perf/env_steps_per_sec":
+                                  24 * N_ENVS / i["seconds"]})
+            for i in its])
+    digests = [[i["digest"] for i in rep["iterations"]] for rep in reports]
+    launches = [i["launches"] for rep in reports
+                for i in rep["iterations"]]
+    first = checkpoint.load(os.path.join(dist_dir, "ckpt_1"))
+    rows = first["env"]["sim"]["qpos"].shape[0]
+    gens = {k: tuple(v.shape) for k, v in first["generators"].items()}
+    differ = checkpoint.mismatches(
+        checkpoint.load(os.path.join(dist_dir, "ckpt_2")),
+        checkpoint.load(os.path.join(flat_dir, "dist-resumed", "ckpt_2")))
+    log(phase, f"learner digests equal across ranks: "
+               f"{digests[0] == digests[1]} ({len(digests[0])} "
+               f"iterations), resumed iteration 2 equals the first: "
+               f"{digests[0][2] == digests[0][1]}; ckpt_1 holds {rows} "
+               f"env rows, generator states {gens}; ranks 1.. wrote "
+               f"{[rep['writes'] for rep in reports[1:]]}; the resumed "
+               f"ckpt_2 differs from the first in {differ[:5]}")
+    calls = [i["collectives"] for rep in reports for i in rep["iterations"]]
+    if (digests[0] != digests[1] or digests[0][2] != digests[0][1]
+            or launches != [24 * env_decimation()] * len(launches)
+            or calls != [{"all_reduce": 36, "broadcast": 0, "other": 0}]
+            * len(calls)
+            or any(rep["writes"] for rep in reports[1:])
+            or not reports[0]["writes"] or rows != N_ENVS
+            or set(gens.values()) != {(DIST_RANKS, gens["env"][1])}
+            or differ):
+        raise RuntimeError("the 2-process run disagrees across ranks, "
+                           "missed the kernel or did not resume")
+    return sum(launches)
+
+
+def train_dr_phase(logdir, flat_dir, dev) -> int:
+    """train-dr (module docstring); returns its pgs_bj launches."""
+    import torch
+
+    from cat_tpu_torch import train
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.rl import checkpoint
+    from cat_tpu_torch.tasks import solo12_flat
+
+    phase = "train-dr"
+    launches, _ = train_phase(
+        phase, train_argv("Solo12-CaT-Flat-v0", logdir, 1, "--run_name",
+                          "dr", "--env_override", *DR_OVERRIDES),
+        pgs.KERNEL, train, 1)
+    off = checkpoint.load(os.path.join(flat_dir, "dr", "ckpt_final"))[
+        "env"]["com_offset"]
+    dr_env = solo12_flat.make_env(N_ENVS, overrides=DR_OVERRIDES,
+                                  device=dev)
+    base = dr_env.model.body_names.index("base_link")
+    rows_hit = sorted(set(off.abs().sum(-1).nonzero()[:, 1].tolist()))
+    distinct = len(torch.unique(off[:, base], dim=0))
+    qpos = []
+    for e in (dr_env, solo12_flat.make_env(N_ENVS, device=dev)):
+        es_dr = e.init(torch.Generator(device=dev).manual_seed(1), N_ENVS)
+        step_gen = torch.Generator(device=dev).manual_seed(2)
+        zero = torch.zeros(N_ENVS, e.num_actions, device=dev)
+        for _ in range(5):
+            es_dr = e.step(es_dr, zero, step_gen)[0]
+        qpos.append(es_dr.sim.qpos)
+    dq = (qpos[0] - qpos[1]).abs().max().item()
+    log(phase, f"com_offset {tuple(off.shape)}, |max| "
+               f"{off.abs().max().item():.4f}, non-zero on body rows "
+               f"{rows_hit} (base_link is {base}), {distinct} distinct "
+               f"base offsets; qpos after 5 control steps differs from "
+               f"the env without the event by {dq:.4g} (gate > 1e-5)")
+    if (tuple(off.shape) != (N_ENVS, dr_env.model.nbody, 3)
+            or off.abs().max().item() > 0.05 or rows_hit != [base]
+            or distinct < N_ENVS // 2 or not dq > 1e-5
+            or not all(bool(torch.isfinite(q).all()) for q in qpos)):
+        raise RuntimeError("the CoM event is missing, out of range or "
+                           "changes nothing")
+    return launches
+
+
 def go2_problem(dev, kind):
     """Contact problems of Go2 (28 contacts, 18 dofs) at N_ENVS, captured
     after 5 control steps: ``kind`` "env" from its flat env under random
@@ -598,9 +945,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as logdir:
         phase = "train"
         launches, _ = train_phase(
-            phase, train_argv("Solo12-CaT-Flat-v0", logdir, PPO_ITERS),
+            phase, train_argv("Solo12-CaT-Flat-v0", logdir, PPO_ITERS,
+                              "--run_name", "flat", "--override",
+                              "save_interval=1"),
             pgs.KERNEL, train, PPO_ITERS)
         bj["launches"] += launches
+        flat_dir = os.path.join(logdir, "clean_rl", "Solo12-CaT-Flat-v0")
+
+        bj["launches"] += train_nccl_phase(logdir, flat_dir)
+        bj["launches"] += train_dist_phase(logdir, flat_dir)
+        bj["launches"] += train_dr_phase(logdir, flat_dir, dev)
 
         phase = "engine-gs"
         eng, s, target, mu, spots = raw_engine_on_rough(dev)

@@ -457,3 +457,31 @@ def test_exported_torchscript_matches_the_actor_on_the_card(cuda, tmp_path):
         want = net.actor((obs - mean.to(cuda)) / torch.sqrt(var.to(cuda) + 1e-8))
         got = policy(obs)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_grouped_iteration_under_nccl_equals_the_ungrouped(cuda, tmp_path):
+    """One iteration through the data-parallel code path, a group of one
+    process under NCCL (every collective runs on the card), leaves the
+    parameters the one-card path leaves, and launches the kernel as it."""
+    from cat_tpu_torch import train
+    from cat_tpu_torch.parallel import distributed
+
+    argv = ["--num_envs", "64", "--override", "num_steps=4",
+            "minibatch_size=64"]
+    alone = train.Trainer(train.parse_args(argv))
+    alone.train_iteration()
+    dist = distributed.maybe_initialize(1, f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        grouped = train.Trainer(train.parse_args(argv), dist)
+        pgs.KERNEL.launches = 0
+        metrics = grouped.train_iteration()
+        torch.cuda.synchronize()
+        assert pgs.KERNEL.launches == 4 * 4
+    finally:
+        distributed.close(dist)
+    assert all(np.isfinite(v) for v in metrics.values())
+    for (name, a), b in zip(alone.ppo.net.state_dict().items(),
+                            grouped.ppo.net.state_dict().values()):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=0, msg=name)
