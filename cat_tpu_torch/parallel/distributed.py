@@ -76,9 +76,10 @@ def maybe_initialize(seed: int, coordinator: Optional[str] = None,
     if dev.type == "cuda":
         dev = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    else:
+    elif "OMP_NUM_THREADS" not in env:
         # the host's cores shared out: with every process on all of them,
-        # the small CPU ops ran ~15x slower
+        # the small CPU ops ran ~15x slower (torchrun sets OMP_NUM_THREADS
+        # for its processes, and a count the environment sets is kept)
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
             env.get("LOCAL_WORLD_SIZE", world))))
     tdist.init_process_group(

@@ -1,5 +1,6 @@
 """Static robot model: a frozen container of numpy arrays (the port's copy of
-cat_tpu/sim/model.py, reduced to what the training path reads).
+cat_tpu/sim/model.py). ``sim/urdf.py`` compiles one from a URDF and
+``to_json`` / ``from_json`` write and read the committed model files.
 
 Bodies 0..nbody-1 in topological order, body 0 = free-floating base; each
 moving body i>=1 has one revolute joint (dof i-1). Generalized coordinates:
@@ -20,7 +21,14 @@ import numpy as np
 
 
 def _empty(shape, dtype=np.float64):
-    return dataclasses.field(default_factory=lambda: np.zeros(shape, dtype))
+    return dataclasses.field(default_factory=lambda: np.zeros(shape, dtype),
+                             metadata={"empty": np.zeros(shape).shape})
+
+
+def _points():
+    """An (n, 3) field with no default. to_json writes an empty one as [],
+    which from_json reads back as (0, 3) by the field's ``empty`` shape."""
+    return dataclasses.field(metadata={"empty": (0, 3)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,13 +50,13 @@ class RobotModel:
     default_base_pos: np.ndarray         # (3,)
     default_qpos_joints: np.ndarray      # (nj,)
     cand_body: np.ndarray                # (ncand,) body owning the point
-    cand_offset: np.ndarray              # (ncand, 3) body frame
+    cand_offset: np.ndarray = _points()  # (ncand, 3) body frame
     cand_radius: np.ndarray              # (ncand,)
     cand_report: np.ndarray              # (ncand,) index into report_names
     report_names: Tuple[str, ...]
     site_names: Tuple[str, ...]
     site_body: np.ndarray
-    site_offset: np.ndarray
+    site_offset: np.ndarray = _points()
     foot_report_ids: np.ndarray          # (nfeet,)
     # self-collision capsule pairs (forces: +f to report_a, -f to report_b)
     pair_body_a: np.ndarray = _empty(0, np.int32)
@@ -135,6 +143,18 @@ class RobotModel:
         q[7:] = self.default_qpos_joints
         return q
 
+    def to_json(self) -> str:
+        """Every field, in field order: arrays as ``{"__nd__": list,
+        "dtype": str}``, name tuples as lists (the reference's format)."""
+        d = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, np.ndarray):
+                d[f.name] = {"__nd__": v.tolist(), "dtype": str(v.dtype)}
+            else:
+                d[f.name] = list(v)
+        return json.dumps(d, indent=1)
+
     @staticmethod
     def from_json(s: str) -> "RobotModel":
         raw = json.loads(s)
@@ -144,7 +164,10 @@ class RobotModel:
                 continue
             v = raw[f.name]
             if isinstance(v, dict) and "__nd__" in v:
-                kw[f.name] = np.array(v["__nd__"], dtype=v["dtype"])
+                a = np.array(v["__nd__"], dtype=v["dtype"])
+                # an empty list loses its trailing dimension
+                kw[f.name] = (a.reshape(f.metadata["empty"])
+                              if a.size == 0 and "empty" in f.metadata else a)
             else:
                 kw[f.name] = tuple(v)
         return RobotModel(**kw)
@@ -178,3 +201,19 @@ class RobotModel:
             pair_report_b=np.array([rep(s, "b") for s in specs],
                                    dtype=np.int32),
         )
+
+
+def combine_inertia(
+    m_a: float, com_a: np.ndarray, I_a: np.ndarray,
+    m_b: float, com_b: np.ndarray, I_b: np.ndarray,
+) -> Tuple[float, np.ndarray, np.ndarray]:
+    """Combine two rigid bodies given in the same frame (parallel-axis)."""
+    m = m_a + m_b
+    com = (m_a * com_a + m_b * com_b) / m
+
+    def shift(I, mass, c, new_c):
+        d = c - new_c
+        return I + mass * ((d @ d) * np.eye(3) - np.outer(d, d))
+
+    I = shift(I_a, m_a, com_a, com) + shift(I_b, m_b, com_b, com)
+    return m, com, I

@@ -51,10 +51,13 @@ Phases, each printed with its elapsed seconds:
      production rough terrain, 4096 Solo12s dropped on patch centres hold
      their default pose for 100 control steps; pgs_gs must launch 400
      times and every robot must stand on its pad;
-  engine-go2: the raw engine (GS-5) with 4096 Go2s dropped from the
-     default pose on flat ground for 75 control steps; pgs_gs must launch
-     300 times, every robot must stand (0.2 < z < 0.45 m, tilt < 0.25,
-     |qvel| < 0.6) and its feet carry its weight to 25%;
+  engine-go2: the port compiles its go2.urdf (``compile_go2()``): its
+     to_json() must equal the committed go2_model.json's
+     byte for byte and every field the JSON-loaded model's; then the raw
+     engine (GS-5) with 4096 of those Go2s dropped from the default pose
+     on flat ground for 75 control steps; pgs_gs must launch 300 times,
+     every robot must stand (0.2 < z < 0.45 m, tilt < 0.25, |qvel| < 0.6)
+     and its feet carry its weight to 25%;
   train-go2: ``cat_tpu_torch.train`` for Go2-CaT-Flat-v0 at 4096 envs
      with the rl_games recipe, 2 iterations, a checkpoint each (192
      launches; metrics.jsonl has 2 lines with every key of the JAX
@@ -92,6 +95,7 @@ line; a hang is cut by a faulthandler deadline.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import gzip
 import json
@@ -861,10 +865,11 @@ def main() -> int:
     import numpy as np
 
     from cat_tpu_torch import play, train
-    from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
+    from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, compile_go2, go2_model
     from cat_tpu_torch.rl import checkpoint
     from cat_tpu_torch.rl.export import export_policy
     from cat_tpu_torch.sim import engine, terrain
+    from cat_tpu_torch.sim.model import RobotModel
     from cat_tpu_torch.tasks import go2_flat, solo12_flat
 
     dev = cat_tpu_torch.resolve_device("cuda")
@@ -980,7 +985,21 @@ def main() -> int:
         del eng, s
 
         phase = "engine-go2"
-        model = go2_model()
+        model = compile_go2()
+        with open(repo / "cat_tpu_torch" / "models" / "go2_model.json") as f:
+            committed = RobotModel.from_json(f.read())
+        if model.to_json() != committed.to_json():
+            raise RuntimeError("the port's compile of go2.urdf is not the "
+                               "committed go2_model.json byte for byte")
+        bad = [f.name for f in dataclasses.fields(RobotModel)
+               if not np.array_equal(getattr(model, f.name),
+                                     getattr(committed, f.name))]
+        if bad:
+            raise RuntimeError(f"compiled Go2 fields differ from the "
+                               f"committed JSON: {bad}")
+        log(phase, f"go2.urdf compiled by the port: to_json() equals the "
+                   f"committed go2_model.json's ({len(model.to_json())} "
+                   f"bytes), every field equal")
         eng = engine.make_batched_step(
             model, engine.EngineParams(kp=GO2_KP, kd=GO2_KD), device=dev)
         s = engine.make_batched_init(model, N_ENVS, dev)

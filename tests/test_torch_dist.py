@@ -488,7 +488,10 @@ def test_no_group_without_flags_and_bad_counts_raise():
 
 def test_torchrun_joins_its_group(tmp_path):
     """Under torchrun (its RANK / WORLD_SIZE / MASTER_* variables) the CLI
-    joins torchrun's group: 2 processes on the CPU, one log."""
+    joins torchrun's group: 2 processes on the CPU, one log. Each process
+    keeps the one thread torchrun gives it (OMP_NUM_THREADS, unless the
+    caller set one): with 4 threads each, six of these runs side by side on
+    an 8-core CPU took 185 s each against 12 s."""
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "2", "-m", "cat_tpu_torch.train", *ARGV,
@@ -501,6 +504,26 @@ def test_torchrun_joins_its_group(tmp_path):
         assert json.load(f)["processes"] == 2
     with open(run / "metrics.jsonl") as f:
         assert len(f.readlines()) == 1
+
+
+@pytest.mark.parametrize("omp", [None, "1"])
+def test_cpu_process_threads(tmp_path, monkeypatch, omp):
+    """A CPU process of a group takes the host's cores / local processes
+    threads, unless OMP_NUM_THREADS is set (torchrun sets it): then the
+    count it set stays."""
+    if omp is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", omp)
+    try:
+        dist = distributed.maybe_initialize(
+            0, f"file://{tmp_path / 'store'}", 1, 0, backend="gloo",
+            device="cpu")
+        distributed.close(dist)
+        assert torch.get_num_threads() == (os.cpu_count() if omp is None
+                                           else 1)
+    finally:
+        torch.set_num_threads(1)
 
 
 def test_main_spawns_one_process_a_card_where_several_are_visible(
