@@ -69,6 +69,12 @@ def n_foot_contact(data: StepData, *, number_of_desired_feet,
     return cstr * (_cmd_norm(data) > min_command_value).float()
 
 
+def joint_range(data: StepData, *, limit, joint_ids):
+    """|q - q_default| - limit."""
+    return torch.abs(data.joint_pos[:, joint_ids]
+                     - data.default_joint_pos[joint_ids]) - limit
+
+
 def action_rate(data: StepData, *, limit, joint_ids):
     return (torch.abs(data.action[:, joint_ids] - data.prev_action[:, joint_ids])
             / data.step_dt - limit)
@@ -76,6 +82,11 @@ def action_rate(data: StepData, *, limit, joint_ids):
 
 def foot_contact_force(data: StepData, *, limit, body_ids):
     return _hist_force_norm(data, body_ids) - limit
+
+
+def min_base_height(data: StepData, *, limit):
+    """limit - base height."""
+    return limit - data.base_pos[:, 2]
 
 
 def no_move(data: StepData, *, velocity_deadzone, joint_vel_limit, joint_ids):

@@ -105,3 +105,8 @@ def detect_contacts(mt: ModelTensors, terrain: Terrain, kin: Kin) -> Contacts:
         phi = torch.cat([phi, phi_p], dim=1)
         Jc = torch.cat([Jc, Jp], dim=1)
     return Contacts(phi=phi, E=Jc.reshape(n, 3 * m.ncand, m.nv), frame=frame)
+
+
+def detect_plane_contacts(mt: ModelTensors, kin: Kin) -> Contacts:
+    """``detect_contacts`` on the flat plane."""
+    return detect_contacts(mt, terrain_mod.plane(), kin)

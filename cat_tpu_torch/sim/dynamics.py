@@ -203,6 +203,13 @@ def point_jacobians(kin: Kin, mask: torch.Tensor,
     return torch.cat([Jlin, Jang, jc.transpose(2, 3)], dim=3)
 
 
+def point_jacobian(kin: Kin, mask_row, x: torch.Tensor) -> torch.Tensor:
+    """(N, 3, nv) Jacobian of the world point x (N, 3) fixed to one body;
+    mask_row (nj,): the joints on the chain from the base to that body."""
+    mask = torch.as_tensor(mask_row, dtype=x.dtype, device=x.device)
+    return point_jacobians(kin, mask[None], x[:, None])[:, 0]
+
+
 def body_jacobians(mt: ModelTensors, kin: Kin) -> Jacs:
     n, nb = kin.o.shape[0], mt.model.nbody
     Jw = torch.cat([

@@ -55,23 +55,34 @@ class SimState(NamedTuple):
     touchdown: torch.Tensor             # (N, nfeet) bool
 
 
-def make_batched_init(model: RobotModel, n: int, device) -> SimState:
-    """n envs at the model's default pose, at rest."""
+def init_state(model: RobotModel, qpos=None, qvel=None,
+               device="cuda") -> SimState:
+    """One env's state, with no env axis: at ``qpos`` (default: the
+    model's default pose) and ``qvel`` (default: at rest)."""
     nf = len(model.foot_report_ids)
 
     def z(*shape):
-        return torch.zeros((n,) + shape, device=device)
+        return torch.zeros(shape, device=device)
 
-    qpos = torch.as_tensor(model.default_qpos(), dtype=torch.float32,
-                           device=device).expand(n, model.nq).clone()
     return SimState(
-        qpos=qpos, qvel=z(model.nv), lam=z(3 * model.ncand),
-        applied_torque=z(model.nj), joint_acc=z(model.nj),
-        forces=z(3 * model.nreport), force_hist=z(9 * model.nreport),
-        current_air_time=z(nf), last_air_time=z(nf),
-        current_contact_time=z(nf), last_contact_time=z(nf),
-        touchdown=torch.zeros(n, nf, dtype=torch.bool, device=device),
+        qpos=torch.as_tensor(qpos if qpos is not None else model.default_qpos(),
+                             dtype=torch.float32, device=device),
+        qvel=(torch.as_tensor(qvel, dtype=torch.float32, device=device)
+              if qvel is not None else z(model.nv)),
+        lam=z(3 * model.ncand), applied_torque=z(model.nj),
+        joint_acc=z(model.nj), forces=z(3 * model.nreport),
+        force_hist=z(9 * model.nreport), current_air_time=z(nf),
+        last_air_time=z(nf), current_contact_time=z(nf),
+        last_contact_time=z(nf),
+        touchdown=torch.zeros(nf, dtype=torch.bool, device=device),
     )
+
+
+def make_batched_init(model: RobotModel, n: int, device="cuda") -> SimState:
+    """n envs at the model's default pose, at rest: ``init_state``
+    broadcast over a leading env axis."""
+    return SimState(*(x.expand((n,) + x.shape).clone()
+                      for x in init_state(model, device=device)))
 
 
 def substep_pre(mt: dyn.ModelTensors, params: EngineParams, terrain: Terrain,

@@ -6,7 +6,13 @@ v_world = R(q) v_local. Every function broadcasts over leading axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def quat_identity(device="cuda") -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,6 +54,14 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit axis (..., 3) and angle (...) -> quaternion (..., 4); a fixed
+    axis (3,) broadcasts over a batch of angles."""
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None],
+                      axis * torch.sin(half)[..., None]], dim=-1)
+
+
 def quat_from_euler_zyx(roll, pitch, yaw) -> torch.Tensor:
     """Quaternion from extrinsic x-y-z (roll/pitch/yaw) Euler angles."""
     cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
@@ -87,3 +101,8 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([z, zero, -x], dim=-1),
         torch.stack([-y, x, zero], dim=-1),
     ], dim=-2)
+
+
+def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
+    """angle wrapped into [-pi, pi)."""
+    return torch.remainder(angle + math.pi, 2.0 * math.pi) - math.pi

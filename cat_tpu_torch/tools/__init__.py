@@ -1,5 +1,7 @@
-"""Offline compile scripts of the asset pipeline: ``compile_go2`` and
-``compile_solo12`` compile a robot's URDF into its model JSON."""
+"""Command-line tools: the asset pipeline's compile scripts
+(``compile_go2`` and ``compile_solo12`` compile a robot's URDF into its
+model JSON), the contact solve's structure probe
+(``pgs_structure_probe``) and the preemption drill (``resume_drill``)."""
 
 import os
 

@@ -88,11 +88,32 @@ Phases, each printed with its elapsed seconds:
      iteration of the flat cell and 1 window of 20 raw-engine control steps,
      no trace: both cells must be correct (their checks against the plain
      learner and physics references included), and their pgs_bj / pgs_gs
-     launches (warm-up and timed) must be (3 + 1) x 96 and (50 + 20) x 4.
+     launches (warm-up and timed) must be (3 + 1) x 96 and (50 + 20) x 4;
+  probe: ``cat_tpu_torch.tools.pgs_structure_probe`` at 256 envs: the flat
+     env's contact problems at 5 points of a 50-control-step rollout (200
+     launches), each of the 26 (blocks, omega, sweeps) structures solved
+     by the pgs_bj kernel (130 launches) and held against its plain
+     version, the 4 serial ones also by pgs_gs (20 launches), held against pgs_bj at 36 single blocks and its own
+     plain version, every structure scored against a converged 100-sweep
+     serial solve; the shipped bj:4:0.9:6 row must read imp_err <= 1.5 x
+     the reference's TPU reading, and leave no contact approaching faster,
+     beyond what the converged solve leaves on it, than the reference's
+     vn_max reading (PROBE_IMP_ERR, PROBE_VN_EXCESS);
+  drill: ``cat_tpu_torch.tools.resume_drill`` at 256 envs: the trainer, a
+     child process, SIGKILLed by its pid once ckpt_20.pt lands (30
+     iterations, a checkpoint every 10), resumed from it: metrics 1..30
+     with no gap, the resumed leg from 21, finite rewards;
+  cstr: Solo12-CaT-Flat-v0 at 4096 envs with joint_range and
+     min_base_height added to its 13 terms: the ConstraintSet's layout has
+     their 12 + 1 columns after the 78, 24 control steps (96 launches) keep
+     the CaT transform finite and both terms violated somewhere; and
+     ``make_batched_init(model, n)``, the reference's two-argument call,
+     lands on the card as ``init_state`` broadcast.
 Training runs log to a temporary directory, never inside the repo.
 Every launch count is set to 0 just before its path and read just after
 (in the train-dist processes, before each iteration); the JSON line's
-launches are their sums over all paths and processes. The last lines are
+launches are their sums over all paths and processes (the drill's trainers,
+which the drill itself checks, excepted). The last lines are
 a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
@@ -143,6 +164,25 @@ DR_OVERRIDES = ("events.com_displacement=0.05",
 # the envs walk at 1.325 m/s; the port must reach half of each
 GO2_FIRST_FALL_MIN = 0.5 * 62.3
 GO2_VX_MIN = 0.5 * 1.325
+PROBE_ENVS = 256     # probe: the reference tool's N
+# probe gate on the shipped bj:4:0.9:6 row, against the reference's TPU
+# reading (runs/profile/perf_r5.md:31-37: imp_err 0.037, vn_max 0.172). On
+# the CPU (the probe at 256 envs, seeds 0-2) the port read imp_err
+# 0.0364-0.0429: it may reach 1.5 x the reference's. Its vn_max, 0.331-0.398,
+# is the captures' tail: the converged 100-sweep serial solve leaves
+# 0.372-0.588 on the same captures. So the gate holds what the structure
+# leaves beyond the converged solve on each contact (vn_excess_max):
+# 0.0546-0.0739 on the CPU, against a limit of the reference's whole
+# vn_max, which bounds its own excess. Structures that leave contacts
+# approaching read over it there: GS-5 and bj:4:1.0:5 0.138-0.358,
+# bj:1:0.5:8 0.173-0.215.
+PROBE_IMP_ERR = (0.037, 1.5)
+PROBE_VN_EXCESS = 0.172
+DRILL = dict(num_envs=256, iters=30, save_interval=10, kill_after=20)
+# cstr: the two terms the recipe leaves out, on every joint / the base, at
+# limits that uniform [-1, 1] actions cross within 24 control steps
+CSTR_TERMS = (("joint_range", dict(limit=0.3), 0.25, True),
+              ("min_base_height", dict(limit=0.28), 1.0, False))
 
 
 def log(phase: str, msg: str):
@@ -788,6 +828,151 @@ def play_bundle(phase, env, net, obs_mean, obs_var):
             run["vx"][PLAY_STEPS // 2:].mean().item(), run["obs"])
 
 
+def probe_phase(logdir, bj, gs):
+    """The structure probe through its command line: every kernel against
+    its plain version at each structure, the GS cross-check, the gate on
+    the shipped structure. Adds its launches and worst errors to the rows."""
+    import torch
+
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.tools import pgs_structure_probe as probe
+
+    phase = "probe"
+    t0 = time.perf_counter()
+    pgs.KERNEL.launches = pgs.GS_KERNEL.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        records = probe.main(["--num_envs", str(PROBE_ENVS), "--device",
+                              "cuda", "--out",
+                              os.path.join(logdir, "probe.json")])
+    for line in printed.getvalue().splitlines():
+        log(phase, line)
+    captures = len(probe.CAPTURE_STEPS)
+    serial = sum(1 for r in records if r["n_blocks"] == 0)
+    # the capture's rollout (its control steps) and one solve a structure
+    # and capture
+    bj["launches"] += check_launches(
+        phase, pgs.KERNEL, max(probe.CAPTURE_STEPS) * env_decimation()
+        + len(probe.VARIANTS) * captures)
+    gs["launches"] += check_launches(phase, pgs.GS_KERNEL, serial * captures)
+    bad = probe.disagreements(records)
+    bj["max_abs_err"] = max([bj["max_abs_err"]]
+                            + [r["kernel_max_abs_err"] for r in records])
+    gs["max_abs_err"] = max([gs["max_abs_err"]]
+                            + [r["gs_max_abs_err"] for r in records
+                               if r["n_blocks"] == 0])
+    cross = max(r["gs_vs_bj_max_abs_err"] for r in records
+                if r["n_blocks"] == 0)
+    shipped, = [r for r in records if (r["n_blocks"], r["omega"],
+                                       r["iterations"]) == (4, 0.9, 6)]
+    ref, factor = PROBE_IMP_ERR
+    gate = {"imp_err": (shipped["imp_err"], ref, ref * factor)}
+    gate["vn_excess_max"] = (shipped["vn_excess_max"], PROBE_VN_EXCESS,
+                             PROBE_VN_EXCESS)
+    torch.cuda.synchronize()
+    log(phase, f"{len(records)} structures x {captures} captures at N="
+        f"{PROBE_ENVS} in {time.perf_counter() - t0:.1f} s: {bad} entries "
+        f"outside the kernel tolerance; pgs_bj vs plain max abs err "
+        f"{max(r['kernel_max_abs_err'] for r in records):.3g}; pgs_gs vs "
+        f"pgs_bj at 36 single blocks {cross:.3g}; shipped bj:4:0.9:6 "
+        + ", ".join(f"{k} {v:.4f} (reference {ref}, gate <= {lim:.4f})"
+                    for k, (v, ref, lim) in gate.items()))
+    if bad:
+        raise RuntimeError("a kernel disagrees with its plain version at a "
+                           "solve structure of the probe")
+    if not all(v <= lim for v, _, lim in gate.values()):
+        raise RuntimeError("the shipped structure converges worse than the "
+                           "reference's reading allows")
+
+
+def drill_phase(logdir):
+    """The preemption drill: SIGKILL after a checkpoint, resume, no gap."""
+    from cat_tpu_torch.tools import resume_drill
+
+    phase = "drill"
+    t0 = time.perf_counter()
+    argv = [f"--{k}={v}" for k, v in DRILL.items()]
+    res = resume_drill.main(argv + [
+        "--device", "cuda", "--logdir", os.path.join(logdir, "drill"),
+        "--out", os.path.join(logdir, "drill.json")])
+    log(phase, f"{json.dumps(res)} in {time.perf_counter() - t0:.1f} s")
+    if not res["pass"]:
+        raise RuntimeError("the resumed run left a gap or did not follow the "
+                           "killed one")
+
+
+def cstr_phase(dev) -> int:
+    """The flat env with the two terms its recipe leaves out, 24 control
+    steps; the reference's two-argument make_batched_init on the card.
+    Returns the pgs_bj launches."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch.envs import constraints
+    from cat_tpu_torch.envs.cat import ConstraintTerm
+    from cat_tpu_torch.envs.env import CatEnv, EnvCfg
+    from cat_tpu_torch.models.solo12 import (
+        SOLO12_ACTUATED_JOINT_ORDER, SOLO12_KD, SOLO12_KP, solo12_model)
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.sim import engine
+    from cat_tpu_torch.tasks import solo12_flat
+
+    phase = "cstr"
+    t0 = time.perf_counter()
+    model = solo12_model()
+    joints = np.arange(model.nj)
+    base = solo12_flat.solo12_constraint_terms(model)
+    extra = [ConstraintTerm(name, getattr(constraints, name),
+                            dict(params, joint_ids=joints)
+                            if name == "joint_range" else params, max_p, cur)
+             for name, params, max_p, cur in CSTR_TERMS]
+    env = CatEnv(model, EnvCfg(num_envs=N_ENVS, kp=SOLO12_KP, kd=SOLO12_KD),
+                 base + extra, SOLO12_ACTUATED_JOINT_ORDER, device=dev)
+    cset = env.cset
+    names = [t.name for t in cset.terms]
+    layout = cset.slices[-2:]
+    log(phase, f"{len(names)} terms, {cset.total_cols} columns; "
+               f"{names[-2]} {layout[0]}, {names[-1]} {layout[1]}")
+    if (names[-2:] != [n for n, *_ in CSTR_TERMS]
+            or layout != [(78, 78 + model.nj), (78 + model.nj, 79 + model.nj)]
+            or cset.total_cols != 79 + model.nj):
+        raise RuntimeError("the ConstraintSet's layout lacks the new terms' "
+                           "columns")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    es = env.init(gen, N_ENVS)
+    pgs.KERNEL.launches = 0
+    outs = []
+    hit = torch.zeros(N_ENVS, 2, dtype=torch.bool, device=dev)
+    for _ in range(24):
+        act = 2.0 * torch.rand(N_ENVS, model.nj, generator=gen,
+                               device=dev) - 1.0
+        es, _, reward, dones, _ = env.step(es, act, gen)
+        outs += [reward, dones]
+        hit |= es.episode_viol[:, -2:] > 0
+    launches = check_launches(phase, pgs.KERNEL, 24 * env_decimation())
+    finite = all(bool(torch.isfinite(t).all()) for t in outs + [
+        es.running_max, es.episode_prob, es.max_p])
+    hit = hit.float().mean(0).tolist()
+    rmax = es.running_max[78:].tolist()
+    log(phase, f"24 control steps x {N_ENVS} envs: CaT transform finite "
+               f"{finite}; share of envs that violated {names[-2]} / "
+               f"{names[-1]} {hit[0]:.3f} / {hit[1]:.3f}; running maxes of "
+               f"their columns {min(rmax):.4g}-{max(rmax):.4g}")
+    if not finite or not all(h > 0 for h in hit):
+        raise RuntimeError("the CaT transform is not finite or a new term "
+                           "never fires")
+    s = engine.make_batched_init(model, 8)
+    one = engine.init_state(model, device=dev)
+    same = all(bool((a == b.expand_as(a)).all()) for a, b in zip(s, one))
+    log(phase, f"make_batched_init(model, 8): qpos {tuple(s.qpos.shape)} on "
+               f"{s.qpos.device}, equal to init_state broadcast {same}; "
+               f"{time.perf_counter() - t0:.1f} s")
+    if s.qpos.device.type != "cuda" or not same:
+        raise RuntimeError("the reference's make_batched_init call does not "
+                           "land on the card")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1157,6 +1342,11 @@ def main() -> int:
                            "their kernels")
     bj["launches"] += got["pgs_bj"]
     gs["launches"] += got["pgs_gs"]
+
+    with tempfile.TemporaryDirectory() as logdir:
+        probe_phase(logdir, bj, gs)
+        drill_phase(logdir)
+    bj["launches"] += cstr_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
