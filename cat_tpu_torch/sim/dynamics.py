@@ -70,6 +70,7 @@ class ModelTensors:
     pair_rsum: torch.Tensor       # (npair,) radius_a + radius_b
     report_matrix: torch.Tensor   # (nreport, nc_terrain + 2 npair) 0/1
     foot_ids: torch.Tensor        # (nfeet,)
+    base_acc: torch.Tensor        # (3,) -g: gravity as a base acceleration
 
     @staticmethod
     def build(model: RobotModel, device) -> "ModelTensors":
@@ -114,6 +115,7 @@ class ModelTensors:
             pair_rsum=_f32(model.pair_radius_a + model.pair_radius_b, device),
             report_matrix=torch.as_tensor(rmat, device=device),
             foot_ids=_long(model.foot_report_ids, device),
+            base_acc=_f32(-GRAVITY, device),
         )
 
 
@@ -242,7 +244,7 @@ def bias_forces(mt: ModelTensors, kin: Kin, jacs: Jacs, I_w: torch.Tensor,
     alpha = [None] * nb
     a_o = [None] * nb
     alpha[0] = torch.zeros(n, 3, device=qvel.device)
-    a_o[0] = _f32(-GRAVITY, qvel.device).expand(n, 3)
+    a_o[0] = mt.base_acc.expand(n, 3)
     for bl, pl, bodies, parents in mt.levels:
         alp = torch.stack([alpha[p] for p in pl], dim=1)
         aop = torch.stack([a_o[p] for p in pl], dim=1)

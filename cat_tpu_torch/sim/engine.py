@@ -12,6 +12,14 @@ branch, the JAX package's production path). One control step is
      default; the block-Jacobi kernel for "bj", the env default)
   4. semi-implicit Euler (quaternion exponential map), joint-limit clamp
   5. per-body net contact forces with a 3-deep history, foot air time
+
+On a CUDA device ``Engine.__call__`` replays the control step from a CUDA
+graph (``_ControlStepGraph``): the first call of an input signature runs
+the loop eagerly (the warm-up), the second captures it, every later call
+copies its inputs into the graph's buffers and replays it. The replay runs
+the same kernels in the same order as the loop (``Engine._eager``), so
+its result equals the loop's bit for bit; on CPU tensors ``__call__`` is
+the loop.
 """
 
 from __future__ import annotations
@@ -177,14 +185,64 @@ def contact_solver(model: RobotModel, sp: solver.SolverParams):
                      "'gs' (serial Gauss-Seidel) and 'bj' (block-Jacobi)")
 
 
+# the contact kernels whose launches a replay of the control step adds to
+# their counts
+_KERNELS = (pgs.KERNEL, pgs.GS_KERNEL)
+
+
+class _ControlStepGraph:
+    """One control step captured in a CUDA graph for one input signature
+    (``Engine._graph_key``): contiguous static copies of the inputs, the
+    outputs the graph writes, and the launches each contact kernel counted
+    while it was captured. ``owners`` keeps the captured objects whose ids
+    are in the key alive, so no other object can take those ids."""
+
+    def __init__(self, owners):
+        self.owners = owners
+        self.graph = None
+
+    def capture(self, eng: "Engine", inputs):
+        """Capture ``eng._eager`` on static copies of ``inputs`` and replay
+        the graph once. Launches counted during the capture stand for this
+        first replay."""
+        self.inputs = tuple(None if t is None else
+                            t.clone(memory_format=torch.contiguous_format)
+                            for t in inputs)
+        before = [k.launches for k in _KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls (NCCL's watchdog) do
+        # not invalidate the capture
+        with torch.no_grad(), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            self.out = eng._eager(SimState(*self.inputs[:-3]),
+                                  *self.inputs[-3:])
+        self.launches = tuple((k, k.launches - b)
+                              for k, b in zip(_KERNELS, before)
+                              if k.launches != b)
+        self.graph = graph
+        graph.replay()
+
+    def replay(self, inputs):
+        for buf, t in zip(self.inputs, inputs):
+            if buf is not None:
+                buf.copy_(t)
+        self.graph.replay()
+        for kernel, n in self.launches:
+            kernel.launches += n
+
+
 class Engine(NamedTuple):
     """The batched engine of one model on one device: its tensors, its
-    parameters, its terrain, the contact solve and its arguments."""
+    parameters, its terrain, the contact solve and its arguments, and the
+    CUDA graphs of its control step (``graphs``, filled by ``__call__`` on
+    a CUDA device; a copy made with ``_replace`` or rebuilt from the fields
+    shares them)."""
     mt: dyn.ModelTensors
     params: EngineParams
     terrain: Terrain
     solve: Callable      # pgs.pgs_gs or pgs.pgs_bj
     pgs_kwargs: dict
+    graphs: dict         # _graph_key -> _ControlStepGraph
 
     def contact_problem(self, s: SimState, target_q, mu, com_offset=None):
         """Everything up to the contact solve at state s. Returns
@@ -207,11 +265,58 @@ class Engine(NamedTuple):
 
     def __call__(self, s: SimState, target_q, mu, com_offset=None) -> SimState:
         """One 50 Hz control step = ``decimation`` substeps; target_q
-        (N, nj), mu (N,), com_offset (N, nbody, 3) or None."""
+        (N, nj), mu (N,), com_offset (N, nbody, 3) or None. On a CUDA
+        device a replay of the step's CUDA graph (module docstring); the
+        state returned shares no memory with the graph."""
+        if s.qpos.device.type != "cuda":
+            return self._eager(s, target_q, mu, com_offset)
+        return self._graphed(s, target_q, mu, com_offset)
+
+    def _graphed(self, s: SimState, target_q, mu, com_offset=None):
+        """The control step from its CUDA graph for this input signature:
+        the first call runs ``_eager`` (the warm-up: cuBLAS handles, the
+        kernels' configurations and device tables, the terrain's tables),
+        the second captures it, later calls replay it. Returns clones of
+        the graph's outputs."""
+        inputs = (*s, target_q, mu, com_offset)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in inputs):
+            raise RuntimeError("the control step's CUDA graph records no "
+                               "gradients: call Engine._eager to "
+                               "differentiate through it")
+        key = self._graph_key(s, target_q, mu, com_offset)
+        g = self.graphs.get(key)
+        if g is None:
+            self.graphs[key] = _ControlStepGraph(
+                (self.mt, self.params, self.terrain, self.pgs_kwargs))
+            return self._eager(s, target_q, mu, com_offset)
+        with torch.cuda.device(s.qpos.device):
+            if g.graph is None:
+                g.capture(self, inputs)
+            else:
+                g.replay(inputs)
+        return SimState(*(t.clone() for t in g.out))
+
+    def _eager(self, s: SimState, target_q, mu, com_offset=None) -> SimState:
+        """The control step as a loop of ``decimation`` substeps, launched
+        op by op from the host: what the CUDA graph captures."""
         s = s._replace(touchdown=torch.zeros_like(s.touchdown))
         for _ in range(self.params.decimation):
             s = self.substep(s, target_q, mu, com_offset)
         return s
+
+    def _graph_key(self, s: SimState, target_q, mu, com_offset=None):
+        """What a capture bakes in: each input's shape, dtype and device
+        (the batch size, whether ``com_offset`` is given) and the identity
+        of the captured model tensors, parameters, terrain and solve
+        arguments. The solve itself is not in it: ``pgs_kwargs`` is made
+        for it (``contact_solver``), and a copy whose solve wraps the same
+        one (a profiler span) replays the same graph."""
+        return (tuple(None if t is None else (tuple(t.shape), t.dtype,
+                                               t.device)
+                      for t in (*s, target_q, mu, com_offset)),
+                id(self.mt), id(self.params), id(self.terrain),
+                id(self.pgs_kwargs))
 
 
 LAYOUTS = ("auto", "lanes", "vmap")
@@ -229,4 +334,4 @@ def make_batched_step(model: RobotModel, params: EngineParams,
         raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
     return Engine(dyn.ModelTensors.build(model, device), params,
                   terrain if terrain is not None else plane(),
-                  *contact_solver(model, params.solver))
+                  *contact_solver(model, params.solver), {})

@@ -55,8 +55,10 @@ class Terrain:
         return np.array([x, y])
 
     @functools.cached_property
-    def _corner_tables(self) -> dict:
-        """The packed corner table on each device it was asked for."""
+    def _device_tables(self) -> dict:
+        """The packed corner table and the probe offsets on each device
+        they were asked for (built once: a CUDA graph of the control step
+        may copy nothing from the host)."""
         return {}
 
 
@@ -68,7 +70,7 @@ def _packed_corners(terrain: Terrain, device) -> torch.Tensor:
     """(R-1)(C-1) x 4 table: the four bilinear corners of a cell come back
     from one 4-wide gather. Built once per terrain and device (~8 MB for
     the production grid)."""
-    tables = terrain._corner_tables
+    tables = terrain._device_tables
     key = str(torch.device(device))
     if key not in tables:
         Hn = np.asarray(terrain.height, dtype=np.float32)
@@ -131,6 +133,18 @@ def normal_at(terrain: Terrain, xy: torch.Tensor) -> torch.Tensor:
     return n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True))
 
 
+def _probe_offsets(terrain: Terrain, dtype, device) -> torch.Tensor:
+    """(5, 2): the centre and the four axis directions of surface_gap's
+    probes, kept with the terrain's tables."""
+    tables = terrain._device_tables
+    key = ("probes", str(torch.device(device)), dtype)
+    if key not in tables:
+        tables[key] = torch.tensor(
+            [[0.0, 0.0], [1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
+            dtype=dtype, device=device)
+    return tables[key]
+
+
 def surface_gap(terrain: Terrain, p: torch.Tensor, probe_r):
     """Signed gap from sphere centres p (..., 3) to the heightfield surface
     (cat_tpu/sim/terrain.py:144-184).
@@ -142,9 +156,7 @@ def surface_gap(terrain: Terrain, p: torch.Tensor, probe_r):
 
     Returns (d (...,), n (..., 3)): the winning gap (radius not yet
     subtracted) and its surface normal."""
-    offs = torch.tensor(
-        [[0.0, 0.0], [1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
-        dtype=p.dtype, device=p.device)                  # (5, 2)
+    offs = _probe_offsets(terrain, p.dtype, p.device)    # (5, 2)
     pr = torch.as_tensor(probe_r, dtype=p.dtype, device=p.device).expand(
         p.shape[:-1])
     xy = p[..., None, :2] + offs * pr[..., None, None]   # (..., 5, 2)

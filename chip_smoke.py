@@ -20,6 +20,16 @@ Phases, each printed with its elapsed seconds:
   kernel-gs: the same for the serial Gauss-Seidel kernel, on problems
      captured from the raw engine on the production rough terrain (Solo12)
      and on flat ground (Go2);
+  graph: the control step's CUDA graph (``Engine.__call__`` on the card)
+     against the eager substep loop (``Engine._eager``) in each engine
+     configuration the port runs: the flat env's block-Jacobi engine at
+     4096 and at 256 envs (the probe's N), with the CoM event's offsets,
+     the raw engine (GS-5) on the production rough terrain, Go2's env
+     (block-Jacobi, 28 contacts) and raw (GS-5) engines, and the box (the
+     Cholesky M^-1) on its slope: after the warm-up call, 5 control steps
+     from one state, graphed and eager, equal bit for bit; the returned
+     states keep their values through 5 more replays; the kernel launches
+     4 times every control step; the eager and graphed ms a control step;
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
      2 PPO iterations, a checkpoint each; pgs_bj must launch 2 x 24 x 4
      times;
@@ -178,6 +188,7 @@ PROBE_ENVS = 256     # probe: the reference tool's N
 # bj:1:0.5:8 0.173-0.215.
 PROBE_IMP_ERR = (0.037, 1.5)
 PROBE_VN_EXCESS = 0.172
+GRAPH_STEPS = 5      # graph: control steps held bit for bit, then timed
 DRILL = dict(num_envs=256, iters=30, save_interval=10, kill_after=20)
 # cstr: the two terms the recipe leaves out, on every joint / the base, at
 # limits that uniform [-1, 1] actions cross within 24 control steps
@@ -784,6 +795,132 @@ def go2_problem(dev, kind):
     return tuple(t.contiguous() for t in ops), eng.pgs_kwargs
 
 
+def graph_configs(dev):
+    """graph phase: (name, make) of each engine configuration; ``make()``
+    returns (engine, state, targets (GRAPH_STEPS, n, nj), mu, com_offset
+    or None), the state in contact, the targets about the default pose."""
+    import torch
+
+    from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
+    from cat_tpu_torch.sim import engine
+    from cat_tpu_torch.tasks import go2_flat, solo12_flat
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def about(default, n, nj):
+        return (torch.as_tensor(default, dtype=torch.float32, device=dev)
+                + 0.3 * torch.randn(GRAPH_STEPS, n, nj, generator=gen,
+                                    device=dev))
+
+    def env_engine(make, n, overrides=()):
+        env = make(n, overrides=overrides, device=dev)
+        es = env.init(gen, n)
+        com = (es.com_offset if env.cfg.events.com_displacement > 0.0
+               else None)
+        return (env.engine, es.sim, about(env.model.default_qpos_joints, n,
+                                          env.model.nj), es.mu, com)
+
+    def rough():
+        eng, s, target, mu, _ = raw_engine_on_rough(dev)
+        return eng, s, about(target[0], N_ENVS, target.shape[1]), mu, None
+
+    def go2_raw():
+        model = go2_model()
+        eng = engine.make_batched_step(
+            model, engine.EngineParams(kp=GO2_KP, kd=GO2_KD), device=dev)
+        return (eng, engine.make_batched_init(model, N_ENVS, dev),
+                about(model.default_qpos_joints, N_ENVS, model.nj),
+                torch.ones(N_ENVS, device=dev), None)
+
+    def box():
+        from cat_tpu_torch.models.box import (box_model, on_slope_qpos,
+                                              slope_terrain)
+
+        model = box_model()
+        eng = engine.make_batched_step(model, engine.EngineParams(),
+                                       terrain=slope_terrain(25.0),
+                                       device=dev)
+        s = engine.make_batched_init(model, N_ENVS, dev)._replace(
+            qpos=torch.from_numpy(on_slope_qpos(25.0, N_ENVS)).to(dev))
+        return (eng, s, torch.zeros(GRAPH_STEPS, N_ENVS, 0, device=dev),
+                torch.linspace(1e-3, 1.0, N_ENVS, device=dev), None)
+
+    return (
+        ("flat-bj", lambda: env_engine(solo12_flat.make_env, N_ENVS)),
+        ("flat-bj-256", lambda: env_engine(solo12_flat.make_env,
+                                           PROBE_ENVS)),
+        ("flat-bj-com", lambda: env_engine(solo12_flat.make_env, N_ENVS,
+                                           DR_OVERRIDES)),
+        ("rough-gs", rough),
+        ("go2-bj", lambda: env_engine(go2_flat.make_env, N_ENVS)),
+        ("go2-gs", go2_raw),
+        ("box-gs", box),
+    )
+
+
+def graph_phase(dev, bj, gs, smi):
+    """graph (module docstring). Adds the launches to the kernels' rows."""
+    import torch
+
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.sim import engine
+
+    phase = "graph"
+
+    def bits(t):
+        return t.view(torch.uint8) if t.dtype == torch.bool else t.view(
+            torch.int32)
+
+    def differ(a, b):
+        return [f for f, x, y in zip(engine.SimState._fields, a, b)
+                if not torch.equal(bits(x), bits(y))]
+
+    def timed(step, s, targets, mu, com):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = []
+        for k in range(GRAPH_STEPS):
+            s = step(s, targets[k], mu, com)
+            states.append(s)
+        torch.cuda.synchronize()
+        return states, (time.perf_counter() - t0) / GRAPH_STEPS * 1e3
+
+    rows = []
+    for name, make in graph_configs(dev):
+        eng, s0, targets, mu, com = make()
+        row = bj if eng.solve is pgs.pgs_bj else gs
+        kernel = pgs.KERNEL if row is bj else pgs.GS_KERNEL
+        kernel.launches = 0
+        eng(s0, targets[0], mu, com)              # the warm-up, eager
+        eager, eager_ms = timed(eng._eager, s0, targets, mu, com)
+        graphed, _ = timed(eng, s0, targets, mu, com)   # capture, replays
+        kept = [engine.SimState(*(t.clone() for t in s)) for s in graphed]
+        more, graph_ms = timed(eng, graphed[-1], targets, mu, com)
+        bad = {k: differ(a, b) for k, (a, b) in enumerate(zip(eager, graphed))
+               if differ(a, b)}
+        moved = [k for k, (a, b) in enumerate(zip(graphed, kept))
+                 if differ(a, b)]
+        row["launches"] += check_launches(
+            f"{phase} {name}", kernel,
+            (1 + 3 * GRAPH_STEPS) * eng.params.decimation)
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in more[-1])
+        n = s0.qpos.shape[0]
+        log(phase, f"{name}: {n} envs, {eng.solve.__name__}; graphed vs "
+                   f"eager over {GRAPH_STEPS} control steps: fields that "
+                   f"differ in any bit {bad or 'none'}; returned states "
+                   f"changed by later replays {moved or 'none'}; finite "
+                   f"{finite}; eager {eager_ms:.3f} ms, graphed "
+                   f"{graph_ms:.3f} ms a control step "
+                   f"({eager_ms / graph_ms:.2f}x)")
+        if bad or moved or not finite or len(eng.graphs) != 1:
+            raise RuntimeError(f"the graphed control step ({name}) is not "
+                               "the eager one bit for bit")
+        rows.append(f"{name} {eager_ms:.3f} / {graph_ms:.3f}")
+        del eng, s0, eager, graphed, kept, more
+    log(phase, f"eager / graphed ms a control step: {'; '.join(rows)} "
+               f"(host clock over {GRAPH_STEPS} synchronised steps; {smi})")
+
+
 def load_actor(path, dev):
     """The network of a policy bundle (``policy_params.npz``) on the card,
     and its observation normaliser's mean and variance. Fails unless the
@@ -1069,6 +1206,8 @@ def main() -> int:
                    table_words=lambda nc: 3 * nc, plain_reps=3)
     del eng, s, physical, problems, box_ops
     bj["launches"] = gs["launches"] = 0
+
+    graph_phase(dev, bj, gs, smi)
 
     with tempfile.TemporaryDirectory() as logdir:
         phase = "train"
