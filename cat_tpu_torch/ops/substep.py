@@ -1,0 +1,294 @@
+"""The physics substep up to the contact solve as two CUDA kernels, their
+wrappers, and the dispatch to their plain PyTorch versions.
+
+  * ``substep_dynamics`` (``csrc/substep_dyn.cu``): PD torque, forward
+    kinematics, M, C, M^-1 and v_free, one warp an env;
+  * ``contact_rows`` (``csrc/contact_rows.cu``): contact candidates and
+    self-collision pairs, phi, the frames and the rows E, W = M^-1 E^T,
+    b = E v_free, in the layout ``ops/pgs.py``'s kernels read.
+
+Neither replaces a Pallas kernel: together they are the counterpart of the
+JAX package's lanes substep (cat_tpu/sim/engine_lanes.py:38
+``_substep_pre_lanes`` over sim/dynamics_lanes.py), which XLA fused into a
+few full-width passes on the TPU. Their plain versions are
+``sim/engine.py``'s ``dynamics_stage`` and ``contact_stage``.
+
+Both wrappers dispatch on the tensors' device: on a CUDA tensor they launch
+the kernel (built by plain nvcc, bound with ctypes) or raise; on a CPU
+tensor they run the plain version. There is no fallback from the card to
+the plain version. The model's tables (``model_tables``) go to the card
+once a ``ModelTensors`` and wrapper, the heightfield's packed corners once
+a terrain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from cat_tpu_torch.sim.dynamics import ContactKin
+from cat_tpu_torch.sim.terrain import _packed_corners
+
+from . import build
+from .pgs import _device_and_stream
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+DYN_SOURCE = CSRC / "substep_dyn.cu"
+CONTACT_SOURCE = CSRC / "contact_rows.cu"
+MAX_DOFS = 32            # a lane of the warp owns each dof
+MAX_CONTACTS = 64
+# the two stages' outputs, in order (``substep_dynamics``'s kin flattened)
+DYN_OUTPUTS = ("tau_j", "v_free", "Minv", "R", "o", "a_w")
+CONTACT_OUTPUTS = ("E", "W", "b", "phi", "frame")
+
+
+class ModelTables(NamedTuple):
+    """The model as the kernels read it (``csrc/substep_model.cuh``)."""
+    floats: torch.Tensor     # float32, the parts in the header's order
+    ints: torch.Tensor       # int32
+    max_depth: int           # levels of the kinematic tree
+    schur: bool              # the structured M^-1 applies
+
+
+def pack_model(model):
+    """(floats, ints, max_depth) of ``model`` as numpy arrays, in the order
+    of ``csrc/substep_model.cuh``."""
+    nb = model.nbody
+    depth = [0] * nb
+    for b in range(1, nb):
+        depth[b] = depth[int(model.parent[b])] + 1
+    anc = model.ancestor_mask()
+    anc_bits = [sum(1 << j for j in range(anc.shape[1]) if anc[b, j])
+                for b in range(nb)]
+    parts = (
+        [0.0, 0.0, 9.81],                 # -g: gravity as a base acceleration
+        model.joint_pos, model.joint_rot, model.joint_axis, model.mass,
+        model.com, model.inertia,
+        np.concatenate([np.zeros(6), np.asarray(model.armature)]),
+        model.effort_limit, model.cand_offset, model.cand_radius,
+        model.pair_p0_a, model.pair_p1_a, model.pair_p0_b, model.pair_p1_b,
+        np.asarray(model.pair_radius_a) + np.asarray(model.pair_radius_b),
+    )
+    floats = np.concatenate([np.asarray(p, dtype=np.float32).reshape(-1)
+                             for p in parts])
+    ints = np.concatenate([np.asarray(p, dtype=np.int64).reshape(-1) for p in (
+        [max(int(p), 0) for p in model.parent], depth, anc_bits,
+        model.cand_body, model.pair_body_a, model.pair_body_b)])
+    return floats, ints.astype(np.int32), max(depth)
+
+
+def model_tables(mt, device) -> ModelTables:
+    """The tables of ``mt``'s model on ``device``."""
+    floats, ints, max_depth = pack_model(mt.model)
+    return ModelTables(torch.as_tensor(floats, device=device),
+                       torch.as_tensor(ints, device=device), max_depth,
+                       bool(mt.model.uniform_3dof_branches()))
+
+
+def _check(device, **tensors):
+    """float32 contiguous tensors of the given shapes, on ``device``, a
+    CUDA device: name=(tensor, shape)."""
+    for name, (t, shape) in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}, not float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    for name, (t, _) in tensors.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}: the kernel needs "
+                             f"every operand on one CUDA device ({device})")
+
+
+def _check_model(model):
+    if not model.nv <= MAX_DOFS:
+        raise ValueError(f"nv={model.nv} dofs: need at most {MAX_DOFS} (a "
+                         "lane of the warp owns each dof)")
+    if not 0 < model.ncand <= MAX_CONTACTS:
+        raise ValueError(f"{model.ncand} contacts: need 1..{MAX_CONTACTS}")
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _SubstepKernel:
+    """ctypes binding of ``csrc/<prefix>.cu``. ``launches`` counts the
+    kernel launches this wrapper made; nothing else changes it. The
+    library is built at the first launch (or by ``load``); once a device,
+    the kernel is allowed all the shared memory a block may opt into; once
+    a ``ModelTensors`` and device, its tables go to the device (cached by
+    the identity of ``mt``: a CUDA graph's capture may copy nothing from
+    the host, and the first, eager call of a control step builds them)."""
+
+    prefix = ""
+    source: Path
+    launch_argtypes: list = []
+    bytes_argtypes: list = []
+
+    def __init__(self):
+        self.launches = 0
+        self.built: Optional[build.Built] = None
+        self._lib = None
+        self._devices = set()
+        self._tables = {}     # (id(mt), device) -> (mt, ModelTables)
+
+    def tables(self, mt, device) -> ModelTables:
+        key = (id(mt), str(device))
+        hit = self._tables.get(key)
+        if hit is None or hit[0] is not mt:
+            hit = self._tables[key] = (mt, model_tables(mt, device))
+        return hit[1]
+
+    def _fn(self, name):
+        return getattr(self._lib, f"{self.prefix}_{name}")
+
+    def load(self) -> build.Built:
+        if self._lib is None:
+            self.built = build.build_shared_library(self.source)
+            self._lib = ctypes.CDLL(str(self.built.path))
+            for name, args, res in (
+                    ("launch", self.launch_argtypes, _I),
+                    ("block_bytes", self.bytes_argtypes, ctypes.c_size_t),
+                    ("error_string", [_I], ctypes.c_char_p),
+                    ("setup", [_I], _I)):
+                self._fn(name).argtypes = args
+                self._fn(name).restype = res
+        return self.built
+
+    def _raise_on(self, err: int, what: str):
+        if err != 0:
+            raise RuntimeError(f"{self.prefix} {what} failed: "
+                               + self._fn("error_string")(err).decode())
+
+    def block_bytes(self, *shape) -> int:
+        """Shared memory a block takes at this shape."""
+        self.load()
+        return self._fn("block_bytes")(*shape)
+
+    def _launch(self, like: torch.Tensor, args):
+        """Launch over ``args`` on ``like``'s device and current stream;
+        count it."""
+        self.load()
+        device, stream = _device_and_stream(like)
+        if device not in self._devices:
+            self._raise_on(self._fn("setup")(device), "setup")
+            self._devices.add(device)
+        launch = self._fn("launch")
+        if device == torch.cuda.current_device():
+            err = launch(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                err = launch(*args, stream)
+        self._raise_on(err, "kernel launch")
+        self.launches += 1
+
+
+class SubstepDynKernel(_SubstepKernel):
+    """``csrc/substep_dyn.cu``: the dynamics stage."""
+
+    prefix = "substep_dyn"
+    source = DYN_SOURCE
+    # qpos qvel target com_offset ftab itab, out tau_j v_free minv R o a_w,
+    # n nb nv max_depth, kp kd h, schur, stream
+    launch_argtypes = [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P]
+    bytes_argtypes = [_I, _I]
+
+    def __call__(self, mt, params, qpos, qvel, target_q, com_offset=None):
+        m = mt.model
+        n = qpos.shape[0]
+        _check_model(m)
+        checks = dict(qpos=(qpos, (n, m.nq)), qvel=(qvel, (n, m.nv)),
+                      target_q=(target_q, (n, m.nj)))
+        if com_offset is not None:
+            checks["com_offset"] = (com_offset, (n, m.nbody, 3))
+        _check(qpos.device, **checks)
+        tab = self.tables(mt, qpos.device)
+
+        def out(*shape):
+            return torch.empty((n,) + shape, device=qpos.device)
+
+        tau_j, v_free, Minv = out(m.nj), out(m.nv), out(m.nv, m.nv)
+        R, o, a_w = out(m.nbody, 3, 3), out(m.nbody, 3), out(m.nj, 3)
+        self._launch(qpos, (
+            qpos.data_ptr(), qvel.data_ptr(), target_q.data_ptr(),
+            None if com_offset is None else com_offset.data_ptr(),
+            tab.floats.data_ptr(), tab.ints.data_ptr(), tau_j.data_ptr(),
+            v_free.data_ptr(), Minv.data_ptr(), R.data_ptr(), o.data_ptr(),
+            a_w.data_ptr(), n, m.nbody, m.nv, tab.max_depth,
+            params.kp, params.kd, params.dt, int(tab.schur)))
+        return tau_j, v_free, Minv, ContactKin(R, o, a_w)
+
+
+class ContactRowsKernel(_SubstepKernel):
+    """``csrc/contact_rows.cu``: the contact stage."""
+
+    prefix = "contact_rows"
+    source = CONTACT_SOURCE
+    # R o a_w minv v_free ftab itab hfield, out E W b phi frame,
+    # n nb nv nct npair hrows hcols, cell, stream
+    launch_argtypes = [_P] * 13 + [_I] * 7 + [_F, _P]
+    bytes_argtypes = [_I, _I, _I]
+
+    def __call__(self, mt, terrain, kin, Minv, v_free):
+        m = mt.model
+        n = v_free.shape[0]
+        _check_model(m)
+        _check(v_free.device, R=(kin.R, (n, m.nbody, 3, 3)),
+               o=(kin.o, (n, m.nbody, 3)), a_w=(kin.a_w, (n, m.nj, 3)),
+               Minv=(Minv, (n, m.nv, m.nv)), v_free=(v_free, (n, m.nv)))
+        tab = self.tables(mt, v_free.device)
+        dev, nc = v_free.device, m.ncand
+        E = torch.empty(n, 3 * nc, m.nv, device=dev)
+        W = torch.empty(n, m.nv, 3 * nc, device=dev)
+        b = torch.empty(n, 3 * nc, device=dev)
+        phi = torch.empty(n, nc, device=dev)
+        # the plane without pairs: the world frame, as the plain version
+        frame = (None if terrain.kind == "plane" and not m.npair
+                 else torch.empty(n, nc, 3, 3, device=dev))
+        if terrain.kind == "plane":
+            hfield, (hrows, hcols) = None, (0, 0)
+        else:
+            hfield = _packed_corners(terrain, dev).data_ptr()
+            hrows, hcols = terrain.height.shape
+        self._launch(v_free, (
+            kin.R.data_ptr(), kin.o.data_ptr(), kin.a_w.data_ptr(),
+            Minv.data_ptr(), v_free.data_ptr(), tab.floats.data_ptr(),
+            tab.ints.data_ptr(), hfield, E.data_ptr(), W.data_ptr(),
+            b.data_ptr(), phi.data_ptr(),
+            None if frame is None else frame.data_ptr(),
+            n, m.nbody, m.nv, m.ncand_terrain, m.npair, hrows, hcols,
+            float(terrain.cell)))
+        return E, W, b, phi, frame
+
+
+DYN_KERNEL = SubstepDynKernel()
+CONTACT_KERNEL = ContactRowsKernel()
+
+
+def substep_dynamics(mt, params, qpos, qvel, target_q, com_offset=None):
+    """(tau_j, v_free, Minv, kin) of one substep on the state's device: the
+    CUDA kernel for CUDA tensors, ``sim.engine.dynamics_stage`` for CPU
+    tensors."""
+    if qpos.device.type == "cpu":
+        # sim.engine imports this module: import its plain stage here
+        from cat_tpu_torch.sim.engine import dynamics_stage
+
+        return dynamics_stage(mt, params, qpos, qvel, target_q, com_offset)
+    return DYN_KERNEL(mt, params, qpos, qvel, target_q, com_offset)
+
+
+def contact_rows(mt, terrain, kin, Minv, v_free):
+    """(E, W, b, phi, frame) of one substep on the operands' device: the
+    CUDA kernel for CUDA tensors, ``sim.engine.contact_stage`` for CPU
+    tensors."""
+    if v_free.device.type == "cpu":
+        from cat_tpu_torch.sim.engine import contact_stage
+
+        return contact_stage(mt, terrain, kin, Minv, v_free)
+    return CONTACT_KERNEL(mt, terrain, kin, Minv, v_free)

@@ -129,6 +129,18 @@ class Kin(NamedTuple):
     o_j: torch.Tensor      # (N, nj, 3) world joint origins
 
 
+class ContactKin(NamedTuple):
+    """The kinematics contact detection reads: a Kin's R, o and a_w (the
+    dynamics kernel of ``ops/substep.py`` writes these three alone)."""
+    R: torch.Tensor        # (N, nb, 3, 3)
+    o: torch.Tensor        # (N, nb, 3)
+    a_w: torch.Tensor      # (N, nj, 3)
+
+    @property
+    def o_j(self) -> torch.Tensor:
+        return self.o[:, 1:]
+
+
 def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 

@@ -20,6 +20,14 @@ copies its inputs into the graph's buffers and replays it. The replay runs
 the same kernels in the same order as the loop (``Engine._eager``), so
 its result equals the loop's bit for bit; on CPU tensors ``__call__`` is
 the loop.
+
+Steps 1-3 up to the solve run in one of two layouts, as in the reference
+(``make_batched_step(layout=...)``): "lanes" (and "auto"), the production
+path, runs them as two kernels a substep (``ops/substep.py``:
+``substep_dynamics``, then ``contact_rows``), each env's intermediates
+kept in its warp's registers and shared memory; "vmap", the reference
+layout, runs the plain versions ``dynamics_stage`` and ``contact_stage``
+op by op over the batch. On CPU tensors both run the plain versions.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from cat_tpu_torch.ops import pgs
+from cat_tpu_torch.ops import pgs, substep
 
 from . import dynamics as dyn
 from . import solver
@@ -93,10 +101,12 @@ def make_batched_init(model: RobotModel, n: int, device="cuda") -> SimState:
                       for x in init_state(model, device=device)))
 
 
-def substep_pre(mt: dyn.ModelTensors, params: EngineParams, terrain: Terrain,
-                qpos, qvel, target_q, com_offset=None):
-    """PD + dynamics + contact rows up to the contact problem.
-    Returns (tau_j, v_free, E, W, b, phi, frame)."""
+def dynamics_stage(mt: dyn.ModelTensors, params: EngineParams, qpos, qvel,
+                   target_q, com_offset=None):
+    """PD torque, kinematics, M, C, M^-1 and the free velocity: the plain
+    version of ``ops/substep.py``'s dynamics kernel (the dynamics half of
+    cat_tpu/sim/engine_lanes.py:38 ``_substep_pre_lanes``). Returns
+    (tau_j, v_free, Minv, kin), kin the fields contacts read."""
     h = params.dt
     m = mt.model
     tau_j = torch.clamp(params.kp * (target_q - qpos[:, 7:])
@@ -117,10 +127,28 @@ def substep_pre(mt: dyn.ModelTensors, params: EngineParams, terrain: Terrain,
         Minv = dyn.cholesky_solve(dyn.cholesky_factor(M),
                                   eye.expand_as(M))
     v_free = qvel + h * torch.matmul(Minv, (tau - C)[..., None])[..., 0]
+    return tau_j, v_free, Minv, dyn.ContactKin(kin.R, kin.o, kin.a_w)
+
+
+def contact_stage(mt: dyn.ModelTensors, terrain: Terrain, kin, Minv, v_free):
+    """Contact candidates and self-collision pairs, their rows E, W =
+    M^-1 E^T and b = E v_free: the plain version of ``ops/substep.py``'s
+    contact kernel (the contact half of ``_substep_pre_lanes``). Returns
+    (E, W, b, phi, frame)."""
     con = detect_contacts(mt, terrain, kin)
     W = torch.matmul(Minv, con.E.transpose(1, 2))            # (N, nv, 3nc)
     b = torch.matmul(con.E, v_free[..., None])[..., 0]       # (N, 3nc)
-    return tau_j, v_free, con.E, W, b, con.phi, con.frame
+    return con.E, W, b, con.phi, con.frame
+
+
+def substep_pre(mt: dyn.ModelTensors, params: EngineParams, terrain: Terrain,
+                qpos, qvel, target_q, com_offset=None):
+    """PD + dynamics + contact rows up to the contact problem, the two plain
+    stages in turn (cat_tpu/sim/engine_lanes.py:38 ``_substep_pre_lanes``).
+    Returns (tau_j, v_free, E, W, b, phi, frame)."""
+    tau_j, v_free, Minv, kin = dynamics_stage(mt, params, qpos, qvel,
+                                              target_q, com_offset)
+    return (tau_j, v_free) + contact_stage(mt, terrain, kin, Minv, v_free)
 
 
 def substep_post(mt: dyn.ModelTensors, params: EngineParams, s: SimState,
@@ -185,9 +213,10 @@ def contact_solver(model: RobotModel, sp: solver.SolverParams):
                      "'gs' (serial Gauss-Seidel) and 'bj' (block-Jacobi)")
 
 
-# the contact kernels whose launches a replay of the control step adds to
-# their counts
-_KERNELS = (pgs.KERNEL, pgs.GS_KERNEL)
+# the kernels whose launches a replay of the control step adds to their
+# counts
+_KERNELS = (pgs.KERNEL, pgs.GS_KERNEL, substep.DYN_KERNEL,
+            substep.CONTACT_KERNEL)
 
 
 class _ControlStepGraph:
@@ -236,21 +265,31 @@ class Engine(NamedTuple):
     parameters, its terrain, the contact solve and its arguments, and the
     CUDA graphs of its control step (``graphs``, filled by ``__call__`` on
     a CUDA device; a copy made with ``_replace`` or rebuilt from the fields
-    shares them)."""
+    shares them), and the layout of the steps up to the solve (module
+    docstring)."""
     mt: dyn.ModelTensors
     params: EngineParams
     terrain: Terrain
     solve: Callable      # pgs.pgs_gs or pgs.pgs_bj
     pgs_kwargs: dict
     graphs: dict         # _graph_key -> _ControlStepGraph
+    layout: str = "auto"
 
     def contact_problem(self, s: SimState, target_q, mu, com_offset=None):
         """Everything up to the contact solve at state s. Returns
         ((tau_j, v_free, W, frame), operands) with operands =
         (E, W, b, bias, active, mu, lam0), the contact kernel's inputs."""
-        tau_j, v_free, E, W, b, phi, frame = substep_pre(
-            self.mt, self.params, self.terrain, s.qpos, s.qvel, target_q,
-            com_offset)
+        if self.layout == "vmap":
+            tau_j, v_free, E, W, b, phi, frame = substep_pre(
+                self.mt, self.params, self.terrain, s.qpos, s.qvel, target_q,
+                com_offset)
+        else:
+            tau_j, v_free, Minv, kin = substep.substep_dynamics(
+                self.mt, self.params, s.qpos.contiguous(),
+                s.qvel.contiguous(), target_q.contiguous(),
+                None if com_offset is None else com_offset.contiguous())
+            E, W, b, phi, frame = substep.contact_rows(
+                self.mt, self.terrain, kin, Minv, v_free)
         sp = self.params.solver
         operands = (E, W, b, solver.contact_bias(phi, self.params.dt, sp),
                     (phi < sp.margin).to(E.dtype), mu, s.lam)
@@ -307,16 +346,18 @@ class Engine(NamedTuple):
 
     def _graph_key(self, s: SimState, target_q, mu, com_offset=None):
         """What a capture bakes in: each input's shape, dtype and device
-        (the batch size, whether ``com_offset`` is given) and the identity
+        (the batch size, whether ``com_offset`` is given), the identity
         of the captured model tensors, parameters, terrain and solve
-        arguments. The solve itself is not in it: ``pgs_kwargs`` is made
-        for it (``contact_solver``), and a copy whose solve wraps the same
-        one (a profiler span) replays the same graph."""
+        arguments, and the layout ("auto" runs as "lanes"). The solve
+        itself is not in it: ``pgs_kwargs`` is made for it
+        (``contact_solver``), and a copy whose solve wraps the same one (a
+        profiler span) replays the same graph."""
         return (tuple(None if t is None else (tuple(t.shape), t.dtype,
                                                t.device)
                       for t in (*s, target_q, mu, com_offset)),
                 id(self.mt), id(self.params), id(self.terrain),
-                id(self.pgs_kwargs))
+                id(self.pgs_kwargs),
+                "vmap" if self.layout == "vmap" else "lanes")
 
 
 LAYOUTS = ("auto", "lanes", "vmap")
@@ -327,11 +368,13 @@ def make_batched_step(model: RobotModel, params: EngineParams,
                       layout: str = "auto", *, device="cuda") -> Engine:
     """The control step of ``model`` on ``device`` (an Engine), in the
     reference's positional order (cat_tpu/sim/engine.py:296). ``num_envs``
-    is ignored, as the reference's batched step ignores it off the TPU;
-    ``layout`` takes the reference's values and changes nothing here: the
-    port has one layout, envs leading."""
+    is ignored, as the reference's batched step ignores it off the TPU.
+    ``layout`` as in the reference: "lanes" runs the steps up to the solve
+    as the two kernels of ``ops/substep.py`` on a CUDA device, "vmap" as
+    the plain versions op by op, "auto" picks "lanes" (the reference picks
+    lanes on its accelerator); on the CPU all three compute the same."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
     return Engine(dyn.ModelTensors.build(model, device), params,
                   terrain if terrain is not None else plane(),
-                  *contact_solver(model, params.solver), {})
+                  *contact_solver(model, params.solver), {}, layout)

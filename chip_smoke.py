@@ -5,8 +5,9 @@
 
 Phases, each printed with its elapsed seconds:
   device: the card, its power limit, the torch and CUDA versions;
-  build: both PGS kernels, ops/csrc/pgs_bj.cu and ops/csrc/pgs_gs.cu, one
-     plain nvcc each, started together;
+  build: the four kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu
+     and contact_rows.cu, one plain nvcc each, started together, with
+     ptxas's registers, stack and spills;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
      N = 4096, on contact problems captured from the port's flat Solo12 env
      (36 contacts) and from its Go2 env (28 contacts), on seeded random
@@ -20,6 +21,18 @@ Phases, each printed with its elapsed seconds:
   kernel-gs: the same for the serial Gauss-Seidel kernel, on problems
      captured from the raw engine on the production rough terrain (Solo12)
      and on flat ground (Go2);
+  kernel-dyn: the substep's two kernels (ops/substep.py: substep_dynamics,
+     contact_rows) against their plain versions (sim/engine.py
+     dynamics_stage, contact_stage; the contact kernel fed the plain
+     dynamics' outputs) on states captured on the card at N = 4096: the
+     flat env (Solo12), the same with random CoM offsets, the raw engine on
+     the production rough terrain, Go2's env and the box on its slope;
+     every output within ``measure.STAGE_TOL`` (on a heightfield without
+     the contacts whose normal a rounding may switch, at most 2%), the max
+     abs and relative error of each printed; then each kernel's time on
+     the flat and rough states as CUDA-graph replays, the plain stages'
+     replayed and eager, the bound (``measure.substep_counts``) and its
+     share;
   graph: the control step's CUDA graph (``Engine.__call__`` on the card)
      against the eager substep loop (``Engine._eager``) in each engine
      configuration the port runs: the flat env's block-Jacobi engine at
@@ -28,8 +41,12 @@ Phases, each printed with its elapsed seconds:
      (block-Jacobi, 28 contacts) and raw (GS-5) engines, and the box (the
      Cholesky M^-1) on its slope: after the warm-up call, 5 control steps
      from one state, graphed and eager, equal bit for bit; the returned
-     states keep their values through 5 more replays; the kernel launches
-     4 times every control step; the eager and graphed ms a control step;
+     states keep their values through 5 more replays; the contact kernel
+     and both substep kernels launch 4 times every control step; the
+     eager and graphed ms a control step; then the engine's "lanes" route
+     against its "vmap" route from the first state: a substep's outputs
+     within the stage tolerances, one control step within qpos atol 2e-3,
+     qvel atol 2e-2;
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
      2 PPO iterations, a checkpoint each; pgs_bj must launch 2 x 24 x 4
      times;
@@ -120,10 +137,14 @@ Phases, each printed with its elapsed seconds:
      ``make_batched_init(model, n)``, the reference's two-argument call,
      lands on the card as ``init_state`` broadcast.
 Training runs log to a temporary directory, never inside the repo.
-Every launch count is set to 0 just before its path and read just after
-(in the train-dist processes, before each iteration); the JSON line's
-launches are their sums over all paths and processes (the drill's trainers,
-which the drill itself checks, excepted). The last lines are
+Every launch count (the four kernels') is set to 0 just before its path
+and read just after (in the train-dist processes, before each iteration);
+the substep kernels must launch once a substep wherever the contact solve
+does (in the bench at least as often: its eager contact problems and
+checks add launches; in the probe the rollout's and one a capture). The
+JSON line's launches are their sums over all paths and processes (the
+drill's trainers, which the drill itself checks, excepted; the
+comparisons of kernel-dyn and graph not counted). The last lines are
 a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
@@ -397,9 +418,33 @@ def train_argv(task, logdir, iters, *extra):
             "none", *extra]
 
 
-def check_launches(phase, kernel, expected) -> int:
-    """The launches of ``kernel`` since its count was set to 0; fails
-    unless they are ``expected``."""
+# the substep kernels' rows of the JSON line (filled by main), whose
+# launches check_launches adds up
+SUBSTEP_ROWS: dict = {}
+
+
+def substep_kernels():
+    """(row name, wrapper) of the substep's two kernels."""
+    from cat_tpu_torch.ops import substep
+
+    return (("substep_dynamics", substep.DYN_KERNEL),
+            ("contact_rows", substep.CONTACT_KERNEL))
+
+
+def zero_counts():
+    """Sets every kernel's launch count to 0, just before a path."""
+    from cat_tpu_torch.ops import pgs
+
+    for kernel in (pgs.KERNEL, pgs.GS_KERNEL,
+                   *(k for _, k in substep_kernels())):
+        kernel.launches = 0
+
+
+def check_launches(phase, kernel, expected, substeps="same") -> int:
+    """The launches of ``kernel`` since the counts were set to 0; fails
+    unless they are ``expected``. Then the substep kernels' launches, which
+    must be ``substeps`` each (one a substep: as many as the contact solve's
+    unless given; None: not checked here), added to their rows."""
     import torch
 
     from cat_tpu_torch.ops import pgs
@@ -410,7 +455,25 @@ def check_launches(phase, kernel, expected) -> int:
     log(phase, f"{name} launches {launches} (expected {expected})")
     if launches != expected:
         raise RuntimeError("the main path did not run through the kernel")
+    if substeps is not None:
+        add_substep_launches(phase, expected if substeps == "same"
+                             else substeps)
     return launches
+
+
+def add_substep_launches(phase, expected, at_least=False):
+    """Adds the substep kernels' launches since the counts were set to 0
+    to their rows; fails unless each is ``expected`` (or, with
+    ``at_least``, no fewer)."""
+    got = {name: k.launches for name, k in substep_kernels()}
+    log(phase, f"substep kernel launches {got} (expected "
+               f"{'at least ' if at_least else ''}{expected} each)")
+    if any(n < expected if at_least else n != expected for n in got.values()):
+        raise RuntimeError("the main path did not run through the substep "
+                           "kernels")
+    for name, n in got.items():
+        if name in SUBSTEP_ROWS:
+            SUBSTEP_ROWS[name]["launches"] += n
 
 
 def check_finite(phase, history):
@@ -433,7 +496,7 @@ def train_phase(phase, argv, kernel, train, iters):
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    zero_counts()
     history = train.main(argv)
     launches = check_launches(phase, kernel, iters * 24 * env_decimation())
     check_finite(phase, history)
@@ -556,7 +619,7 @@ def dist_worker(rank, coordinator, argv, resume_argv, resume_coordinator,
     profiled = {"on": False}
 
     def traced(self):
-        pgs.KERNEL.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with Collectives() as calls:
@@ -571,7 +634,9 @@ def dist_worker(rank, coordinator, argv, resume_argv, resume_coordinator,
                 metrics = real(self)
                 torch.cuda.synchronize()
         report["iterations"].append({
-            "launches": pgs.KERNEL.launches, "collectives": calls.counts,
+            "launches": pgs.KERNEL.launches,
+            "substep_launches": [k.launches for _, k in substep_kernels()],
+            "collectives": calls.counts,
             "collective_s": calls.seconds,
             "seconds": time.perf_counter() - t0,
             "digest": learner_digest(self, metrics), "metrics": metrics})
@@ -688,6 +753,8 @@ def train_dist_phase(logdir, flat_dir) -> int:
     digests = [[i["digest"] for i in rep["iterations"]] for rep in reports]
     launches = [i["launches"] for rep in reports
                 for i in rep["iterations"]]
+    substeps = [n for rep in reports for i in rep["iterations"]
+                for n in i["substep_launches"]]
     first = checkpoint.load(os.path.join(dist_dir, "ckpt_1"))
     rows = first["env"]["sim"]["qpos"].shape[0]
     gens = {k: tuple(v.shape) for k, v in first["generators"].items()}
@@ -704,6 +771,7 @@ def train_dist_phase(logdir, flat_dir) -> int:
     calls = [i["collectives"] for rep in reports for i in rep["iterations"]]
     if (digests[0] != digests[1] or digests[0][2] != digests[0][1]
             or launches != [24 * env_decimation()] * len(launches)
+            or substeps != [24 * env_decimation()] * len(substeps)
             or calls != [{"all_reduce": 36, "broadcast": 0, "other": 0}]
             * len(calls)
             or any(rep["writes"] for rep in reports[1:])
@@ -712,6 +780,9 @@ def train_dist_phase(logdir, flat_dir) -> int:
             or differ):
         raise RuntimeError("the 2-process run disagrees across ranks, "
                            "missed the kernel or did not resume")
+    log(phase, f"substep kernel launches an iteration and rank {substeps}")
+    for k, (name, _) in enumerate(substep_kernels()):
+        SUBSTEP_ROWS[name]["launches"] += sum(substeps[k::2])
     return sum(launches)
 
 
@@ -795,6 +866,172 @@ def go2_problem(dev, kind):
     return tuple(t.contiguous() for t in ops), eng.pgs_kwargs
 
 
+def substep_states(dev):
+    """kernel-dyn: (name, engine, state, target, CoM offset or None) of
+    each configuration on the card, its state captured from a run: the flat
+    env (Solo12, N_ENVS, after 5 steps of random actions), the same with
+    random CoM offsets on every body, the raw engine on the production
+    rough terrain (after 5 control steps on the pads), Go2's env (after 5
+    steps), the box on its slope (after 10 control steps)."""
+    import torch
+
+    from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
+    from cat_tpu_torch.sim import engine
+    from cat_tpu_torch.tasks import go2_flat, solo12_flat
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def env_state(make):
+        env = make(N_ENVS, device=dev)
+        es = env.init(gen, N_ENVS)
+        for _ in range(5):
+            es = env.step(es, 0.3 * torch.randn(
+                N_ENVS, env.model.nj, generator=gen, device=dev), gen)[0]
+        target = env.default_joint_pos_task[env.m2t].expand(
+            N_ENVS, env.model.nj).contiguous()
+        return env.engine, es.sim, target
+
+    eng, s, target = env_state(solo12_flat.make_env)
+    com = 0.05 * (2.0 * torch.rand(N_ENVS, eng.mt.model.nbody, 3,
+                                   generator=gen, device=dev) - 1.0)
+    yield "flat", eng, s, target, None
+    yield "flat-com", eng, s, target, com
+    eng, s, target, mu, _ = raw_engine_on_rough(dev)
+    for _ in range(5):
+        s = eng(s, target, mu)
+    yield "rough", eng, s, target.contiguous(), None
+    yield ("go2",) + env_state(go2_flat.make_env) + (None,)
+    model = box_model()
+    eng = engine.make_batched_step(model, engine.EngineParams(),
+                                   terrain=slope_terrain(25.0), device=dev)
+    s = engine.make_batched_init(model, N_ENVS, dev)._replace(
+        qpos=torch.from_numpy(on_slope_qpos(25.0, N_ENVS)).to(dev))
+    target = torch.zeros(N_ENVS, 0, device=dev)
+    mu = torch.linspace(1e-3, 1.0, N_ENVS, device=dev)
+    for _ in range(10):
+        s = eng(s, target, mu)
+    yield "box", eng, s, target, None
+
+
+def compare_stages(phase, label, mt, terrain, kern, kern_c, plain, plain_c,
+                   kin):
+    """Each output of the two kernels against the plain stages' within
+    ``measure.STAGE_TOL`` (on a heightfield without the contacts whose
+    normal one rounding may switch); logs the errors, fails on an entry
+    outside. Returns the max abs error over the outputs."""
+    from cat_tpu_torch import measure
+
+    from cat_tpu_torch.ops.substep import CONTACT_OUTPUTS, DYN_OUTPUTS
+
+    left_out = measure.ambiguous_contacts(mt, terrain, kin)
+    outs = zip(DYN_OUTPUTS + CONTACT_OUTPUTS,
+               (*kern[:3], *kern[3], *kern_c),
+               (*plain[:3], *plain[3], *plain_c))
+    errs, bad, worst = [], {}, 0.0
+    for name, a, b in outs:
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                bad[name] = "given by one side"
+            continue
+        keep = ~left_out if name in CONTACT_OUTPUTS else None
+        err, rel, outside = measure.stage_disagreement(
+            name, a, b, keep, hfield=terrain.kind == "hfield")
+        errs.append(f"{name} {err:.3g}/{rel:.3g}")
+        worst = max(worst, err)
+        if outside:
+            bad[name] = outside
+    log(phase, f"{label}: max abs/rel err {', '.join(errs)}; "
+               f"{int(left_out.sum())} of {left_out.numel()} contacts left "
+               f"out (normal switchable by a rounding); outside tolerance "
+               f"{bad or 'none'}")
+    if bad or left_out.sum() > 0.02 * left_out.numel():
+        raise RuntimeError(f"a substep kernel disagrees with its plain "
+                           f"version ({label})")
+    return worst
+
+
+def kernel_dyn_phase(dev, smi):
+    """kernel-dyn (module docstring). Returns the two kernels' rows."""
+    import torch
+
+    from cat_tpu_torch import measure
+    from cat_tpu_torch.models.solo12 import solo12_model
+    from cat_tpu_torch.ops import substep
+    from cat_tpu_torch.sim import engine
+
+    phase = "kernel-dyn"
+    rows = {name: dict(name=name, route="cuda", launches=0, max_abs_err=0.0,
+                       source=f"cat_tpu_torch/ops/csrc/{src}",
+                       replaces="cat_tpu/sim/engine_lanes.py:38")
+            for name, src in (("substep_dynamics", "substep_dyn.cu"),
+                              ("contact_rows", "contact_rows.cu"))}
+    dyn, con = rows["substep_dynamics"], rows["contact_rows"]
+    timed = {}
+    for label, eng, s, target, com in substep_states(dev):
+        mt, params, terr = eng.mt, eng.params, eng.terrain
+        args = (s.qpos.contiguous(), s.qvel.contiguous(), target, com)
+        kern = substep.DYN_KERNEL(mt, params, *args)
+        plain = engine.dynamics_stage(mt, params, *args)
+        tau_j, v_free, Minv, kin = plain
+        kern_c = substep.CONTACT_KERNEL(mt, terr, kin, Minv, v_free)
+        plain_c = engine.contact_stage(mt, terr, kin, Minv, v_free)
+        torch.cuda.synchronize()
+        err = compare_stages(phase, label, mt, terr, kern, kern_c, plain,
+                             plain_c, kin)
+        dyn["max_abs_err"] = con["max_abs_err"] = max(dyn["max_abs_err"],
+                                                      err)
+        # the kernels' time as CUDA-graph replays (no host cost); on the
+        # flat and rough states also the plain stages' (replays of their
+        # captured kernels, and eager), the bound and its share
+        t = timed[label] = {}
+        t["dyn"] = measure.graph_ms(
+            lambda: substep.DYN_KERNEL(mt, params, *args), 50)
+        t["con"] = measure.graph_ms(
+            lambda: substep.CONTACT_KERNEL(mt, terr, kin, Minv, v_free), 50)
+        if label not in ("flat", "rough"):
+            log(phase, f"{label}: substep_dynamics {t['dyn']:.4f} ms, "
+                       f"contact_rows {t['con']:.4f} ms (graph replays)")
+            continue
+        t["dyn_plain"] = measure.graph_ms(
+            lambda: engine.dynamics_stage(mt, params, *args), 5)
+        t["con_plain"] = measure.graph_ms(
+            lambda: engine.contact_stage(mt, terr, kin, Minv, v_free), 5)
+        t["dyn_eager"] = measure.cuda_ms(
+            lambda: engine.dynamics_stage(mt, params, *args), 5)
+        t["con_eager"] = measure.cuda_ms(
+            lambda: engine.contact_stage(mt, terr, kin, Minv, v_free), 5)
+        counts = measure.substep_counts(mt.model, N_ENVS,
+                                        hfield=terr.kind == "hfield")
+        for key, name in (("dyn", "substep_dynamics"),
+                          ("con", "contact_rows")):
+            byts, flops = counts[name]
+            t[key + "_bound"], t[key + "_by"] = measure.bound(byts, flops)
+            log(phase, f"{label}, {name}: kernel {t[key]:.4f} ms (graph "
+                       f"replays); plain {t[key + '_plain']:.3f} ms replayed, "
+                       f"{t[key + '_eager']:.3f} ms eager; bound "
+                       f"{t[key + '_bound']:.4f} ms by {t[key + '_by']} "
+                       f"({byts / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP): "
+                       f"{t[key + '_bound'] / t[key] * 100:.1f}% of it; "
+                       f"N = {N_ENVS}")
+    for key, row in (("dyn", dyn), ("con", con)):
+        t = timed["flat"]           # the flat cell's configuration
+        row.update(ms=t[key], plain_ms=t[key + "_plain"],
+                   bound_ms=t[key + "_bound"], bound_by=t[key + "_by"])
+    m = solo12_model()
+    smem = {"substep_dynamics": substep.DYN_KERNEL.block_bytes(m.nbody, m.nv),
+            "contact_rows": substep.CONTACT_KERNEL.block_bytes(
+                m.nbody, m.nv, m.ncand)}
+    for name, kernel in substep_kernels():
+        log(phase, f"{name}: {kernel.built.path.name}; shared memory a "
+                   f"block of 4 envs at Solo12's shape {smem[name]} B; "
+                   f"launches in this phase {kernel.launches} (not "
+                   f"counted: a comparison)")
+    log(phase, f"rough (the engine cell's configuration): substep_dynamics "
+               f"{timed['rough']['dyn']:.4f} ms, contact_rows "
+               f"{timed['rough']['con']:.4f} ms a launch; {smi}")
+    return dyn, con
+
+
 def graph_configs(dev):
     """graph phase: (name, make) of each engine configuration; ``make()``
     returns (engine, state, targets (GRAPH_STEPS, n, nj), mu, com_offset
@@ -858,6 +1095,39 @@ def graph_configs(dev):
     )
 
 
+def layouts_agree(phase, eng, s, target, mu, com):
+    """The engine's "lanes" route (the two substep kernels) against its
+    "vmap" route (the plain stages) from state s: the contact problem of a
+    substep within the stage tolerances, and one control step within the
+    chained-step tolerances of tests/test_torch_engine.py (qpos atol 2e-3,
+    qvel atol 2e-2)."""
+    import torch
+
+    from cat_tpu_torch.ops import substep
+    from cat_tpu_torch.sim import engine
+
+    vmap = eng._replace(layout="vmap", graphs={})
+    args = (s.qpos.contiguous(), s.qvel.contiguous(), target.contiguous(),
+            com)
+    plain = engine.dynamics_stage(eng.mt, eng.params, *args)
+    plain_c = engine.contact_stage(eng.mt, eng.terrain, plain[3], plain[2],
+                                   plain[1])
+    kern = substep.substep_dynamics(eng.mt, eng.params, *args)
+    kern_c = substep.contact_rows(eng.mt, eng.terrain, kern[3], kern[2],
+                                  kern[1])
+    torch.cuda.synchronize()
+    compare_stages(phase, "lanes vs vmap, a substep", eng.mt, eng.terrain,
+                   kern, kern_c, plain, plain_c, plain[3])
+    a = vmap._eager(s, target, mu, com)
+    b = eng._eager(s, target, mu, com)
+    dq = (a.qpos - b.qpos).abs().max().item()
+    dv = (a.qvel - b.qvel).abs().max().item()
+    log(phase, f"lanes vs vmap, a control step: max |dqpos| {dq:.3g} "
+               f"(atol 2e-3), max |dqvel| {dv:.3g} (atol 2e-2)")
+    if not (dq <= 2e-3 and dv <= 2e-2):
+        raise RuntimeError("the two layouts' control steps disagree")
+
+
 def graph_phase(dev, bj, gs, smi):
     """graph (module docstring). Adds the launches to the kernels' rows."""
     import torch
@@ -890,7 +1160,7 @@ def graph_phase(dev, bj, gs, smi):
         eng, s0, targets, mu, com = make()
         row = bj if eng.solve is pgs.pgs_bj else gs
         kernel = pgs.KERNEL if row is bj else pgs.GS_KERNEL
-        kernel.launches = 0
+        zero_counts()
         eng(s0, targets[0], mu, com)              # the warm-up, eager
         eager, eager_ms = timed(eng._eager, s0, targets, mu, com)
         graphed, _ = timed(eng, s0, targets, mu, com)   # capture, replays
@@ -916,6 +1186,7 @@ def graph_phase(dev, bj, gs, smi):
             raise RuntimeError(f"the graphed control step ({name}) is not "
                                "the eager one bit for bit")
         rows.append(f"{name} {eager_ms:.3f} / {graph_ms:.3f}")
+        layouts_agree(f"{phase} {name}", eng, s0, targets[0], mu, com)
         del eng, s0, eager, graphed, kept, more
     log(phase, f"eager / graphed ms a control step: {'; '.join(rows)} "
                f"(host clock over {GRAPH_STEPS} synchronised steps; {smi})")
@@ -954,7 +1225,7 @@ def play_bundle(phase, env, net, obs_mean, obs_var):
     obs_std = torch.sqrt(obs_var + 1e-8)
     gen = torch.Generator(device=obs_mean.device).manual_seed(1)
     es = env.init(gen, env.cfg.num_envs)
-    pgs.KERNEL.launches = 0
+    zero_counts()
     run = rollout(env, es, lambda obs: net.actor((obs - obs_mean) / obs_std),
                   PLAY_STEPS, gen)
     launches = check_launches(phase, pgs.KERNEL, PLAY_STEPS * env_decimation())
@@ -976,7 +1247,7 @@ def probe_phase(logdir, bj, gs):
 
     phase = "probe"
     t0 = time.perf_counter()
-    pgs.KERNEL.launches = pgs.GS_KERNEL.launches = 0
+    zero_counts()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         records = probe.main(["--num_envs", str(PROBE_ENVS), "--device",
@@ -988,10 +1259,13 @@ def probe_phase(logdir, bj, gs):
     serial = sum(1 for r in records if r["n_blocks"] == 0)
     # the capture's rollout (its control steps) and one solve a structure
     # and capture
+    # the substep kernels: the rollout and one contact problem a capture
     bj["launches"] += check_launches(
         phase, pgs.KERNEL, max(probe.CAPTURE_STEPS) * env_decimation()
-        + len(probe.VARIANTS) * captures)
-    gs["launches"] += check_launches(phase, pgs.GS_KERNEL, serial * captures)
+        + len(probe.VARIANTS) * captures,
+        substeps=max(probe.CAPTURE_STEPS) * env_decimation() + captures)
+    gs["launches"] += check_launches(phase, pgs.GS_KERNEL, serial * captures,
+                                     substeps=None)
     bad = probe.disagreements(records)
     bj["max_abs_err"] = max([bj["max_abs_err"]]
                             + [r["kernel_max_abs_err"] for r in records])
@@ -1077,7 +1351,7 @@ def cstr_phase(dev) -> int:
                            "columns")
     gen = torch.Generator(device=dev).manual_seed(4)
     es = env.init(gen, N_ENVS)
-    pgs.KERNEL.launches = 0
+    zero_counts()
     outs = []
     hit = torch.zeros(N_ENVS, 2, dtype=torch.bool, device=dev)
     for _ in range(24):
@@ -1142,8 +1416,9 @@ def main() -> int:
                f"CUDA {torch.version.cuda} | {torch.cuda.device_count()} card(s)")
 
     phase = "build"
-    with ThreadPoolExecutor(2) as pool:   # one nvcc a source, together
-        builds = list(pool.map(lambda k: k.load(), (pgs.KERNEL, pgs.GS_KERNEL)))
+    kernels = (pgs.KERNEL, pgs.GS_KERNEL, *(k for _, k in substep_kernels()))
+    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc a source
+        builds = list(pool.map(lambda k: k.load(), kernels))
     for built in builds:
         log(phase, f"{built.path.name} in {built.seconds:.1f}s")
         for line in built.log.splitlines():
@@ -1205,6 +1480,9 @@ def main() -> int:
                                 active=physical[4]),
                    table_words=lambda nc: 3 * nc, plain_reps=3)
     del eng, s, physical, problems, box_ops
+
+    dyn, con = kernel_dyn_phase(dev, smi)
+    SUBSTEP_ROWS.update(substep_dynamics=dyn, contact_rows=con)
     bj["launches"] = gs["launches"] = 0
 
     graph_phase(dev, bj, gs, smi)
@@ -1225,7 +1503,7 @@ def main() -> int:
 
         phase = "engine-gs"
         eng, s, target, mu, spots = raw_engine_on_rough(dev)
-        pgs.GS_KERNEL.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(RAW_STEPS):
@@ -1269,7 +1547,7 @@ def main() -> int:
                                  dtype=torch.float32,
                                  device=dev).expand(N_ENVS, model.nj)
         mu = torch.ones(N_ENVS, device=dev)
-        pgs.GS_KERNEL.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(GO2_SETTLE):
@@ -1333,7 +1611,7 @@ def main() -> int:
                    f"logged at iteration {PPO_ITERS}")
         if differ or lr_saved != history[-1]["Train/learning_rate"]:
             raise RuntimeError("the restored state is not the saved one")
-        pgs.KERNEL.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         metrics = fresh.train_iteration()
         metrics["Perf/iter_seconds"] = time.perf_counter() - t0
@@ -1347,7 +1625,7 @@ def main() -> int:
         del fresh
 
         phase = "play-run"
-        pgs.KERNEL.launches = 0
+        zero_counts()
         play.main(["--run_dir", run_dir, "--steps", str(PLAY_STEPS),
                    "--num_envs", str(N_ENVS), "--device", "cuda"])
         bj["launches"] += check_launches(phase, pgs.KERNEL,
@@ -1453,6 +1731,7 @@ def main() -> int:
                                "with the actor")
 
     phase = "bench"
+    zero_counts()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         # the flat cell at 1 timed iteration, the engine cell at 1 window
@@ -1481,6 +1760,9 @@ def main() -> int:
                            "their kernels")
     bj["launches"] += got["pgs_bj"]
     gs["launches"] += got["pgs_gs"]
+    # the substep kernels also run in the bench's eager contact problems
+    # and reference checks, outside its count
+    add_substep_launches(phase, sum(expected.values()), at_least=True)
 
     with tempfile.TemporaryDirectory() as logdir:
         probe_phase(logdir, bj, gs)
@@ -1491,7 +1773,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: dict(row, route="cuda", library_ms=None)[k] for k in keys}
-        for row in (bj, gs)]}), flush=True)
+        for row in (bj, gs, dyn, con)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

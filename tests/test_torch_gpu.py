@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (block-Jacobi and serial Gauss-Seidel PGS)
-against their plain PyTorch versions, on a card.
+"""The hand-written CUDA kernels (block-Jacobi and serial Gauss-Seidel PGS,
+and the substep's dynamics and contact rows) against their plain PyTorch
+versions, on a card.
 
 These tests need a CUDA card and skip without one (the kernels have no CPU
 mode). They import nothing of JAX, so they run on a machine without it:
@@ -12,7 +13,9 @@ arithmetic in the same block order and differ only in summation order
 (the kernels work in the space of the dofs and never form A; fused
 multiply-adds; batched contractions). A whole control step on the
 card against the same step on the CPU is held to the tolerances of
-tests/test_torch_engine.py.
+tests/test_torch_engine.py. The substep kernels are held to
+``measure.STAGE_TOL`` (the tolerances tests/test_lanes.py holds the JAX
+lanes layout to).
 """
 
 import numpy as np
@@ -485,3 +488,101 @@ def test_grouped_iteration_under_nccl_equals_the_ungrouped(cuda, tmp_path):
     for (name, a), b in zip(alone.ppo.net.state_dict().items(),
                             grouped.ppo.net.state_dict().values()):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=0, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the substep kernels (substep_dyn.cu, contact_rows.cu)
+# ---------------------------------------------------------------------------
+
+N_SUBSTEP = 4096
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solo12-plane", "solo12-rough",
+                                  "solo12-com", "go2", "box"])
+def test_substep_kernels_match_plain(cuda, name):
+    """Each kernel against its plain version on the same inputs at
+    N = 4096 (tests/_substep_cases.py), output by output, within
+    ``measure.STAGE_TOL`` (``HFIELD_ATOL`` for a heightfield's rows); the
+    contact kernel is fed the plain dynamics stage's outputs. On the heightfield the contacts whose normal one
+    rounding may switch (``measure.ambiguous_contacts``) are left out, and
+    are at most 2% of them. One launch each."""
+    from _substep_cases import make_case, torch_inputs
+    from cat_tpu_torch import measure
+    from cat_tpu_torch.ops import substep
+    from cat_tpu_torch.ops.substep import CONTACT_OUTPUTS, DYN_OUTPUTS
+    from cat_tpu_torch.sim.dynamics import ModelTensors
+
+    case = make_case(name, N_SUBSTEP)
+    mt = ModelTensors.build(case.model, cuda)
+    args = torch_inputs(case, cuda)
+    launches = (substep.DYN_KERNEL.launches, substep.CONTACT_KERNEL.launches)
+    kern = substep.substep_dynamics(mt, case.params, *args)
+    plain = engine.dynamics_stage(mt, case.params, *args)
+    tau_j, v_free, Minv, kin = plain
+    kern_c = substep.contact_rows(mt, case.terrain, kin, Minv, v_free)
+    plain_c = engine.contact_stage(mt, case.terrain, kin, Minv, v_free)
+    torch.cuda.synchronize()
+    assert (substep.DYN_KERNEL.launches - launches[0],
+            substep.CONTACT_KERNEL.launches - launches[1]) == (1, 1)
+    left_out = measure.ambiguous_contacts(mt, case.terrain, kin)
+    assert int(left_out.sum()) <= 0.02 * left_out.numel()
+    flat = lambda out: (*out[:3], *out[3])           # noqa: E731
+    bad = {}
+    for names, k_out, p_out, keep in (
+            (DYN_OUTPUTS, flat(kern), flat(plain), None),
+            (CONTACT_OUTPUTS, kern_c, plain_c, ~left_out)):
+        for out, a, b in zip(names, k_out, p_out):
+            if a is None or b is None:
+                assert a is None and b is None, out
+                continue
+            err, rel, outside = measure.stage_disagreement(
+                out, a, b, keep, hfield=case.terrain.kind == "hfield")
+            if outside:
+                bad[out] = (outside, err, rel)
+    assert bad == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["lanes", "vmap"])
+def test_graph_equals_eager_on_each_layout(cuda, layout):
+    """The control step's CUDA graph equals the eager loop bit for bit on
+    both layouts (the raw engine on a heightfield, with CoM offsets); on
+    "lanes" each substep kernel launches once a substep, replayed or not,
+    and on "vmap" never."""
+    from cat_tpu_torch.ops import substep
+
+    model, step, s = _rough_raw_engine(cuda, 512)
+    eng = step._replace(layout=layout, graphs={})
+    target = torch.as_tensor(model.default_qpos_joints, dtype=torch.float32,
+                             device=cuda).expand(512, model.nj).contiguous()
+    mu = torch.full((512,), 0.9, device=cuda)
+    com = 0.02 * torch.ones(512, model.nbody, 3, device=cuda)
+    kernels = (substep.DYN_KERNEL, substep.CONTACT_KERNEL)
+    before = [k.launches for k in kernels]
+    eng(s, target, mu, com)                         # the warm-up, eager
+    e = g = s
+    for _ in range(3):
+        e = eng._eager(e, target, mu, com)
+        g = eng(g, target, mu, com)                 # capture, replays
+    torch.cuda.synchronize()
+    for f, a, b in zip(engine.SimState._fields, e, g):
+        assert torch.equal(a, b), f
+    per = 7 * eng.params.decimation if layout == "lanes" else 0
+    assert [k.launches - b for k, b in zip(kernels, before)] == [per, per]
+
+
+@pytest.mark.gpu
+def test_lanes_and_vmap_control_steps_agree_on_the_card(cuda):
+    """One control step of the raw engine on the heightfield through the
+    kernels and through the plain stages, from the same state: within the
+    chained-step tolerances of tests/test_torch_engine.py."""
+    model, step, s = _rough_raw_engine(cuda, 512)
+    target = torch.as_tensor(model.default_qpos_joints, dtype=torch.float32,
+                             device=cuda).expand(512, model.nj)
+    mu = torch.full((512,), 0.9, device=cuda)
+    out = {lay: step._replace(layout=lay, graphs={})._eager(s, target, mu)
+           for lay in ("lanes", "vmap")}
+    a, b = out["vmap"], out["lanes"]
+    torch.testing.assert_close(b.qpos, a.qpos, rtol=0, atol=2e-3)
+    torch.testing.assert_close(b.qvel, a.qvel, rtol=0, atol=2e-2)
