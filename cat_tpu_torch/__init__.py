@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of cat_tpu: the CaT quadruped trainer on one NVIDIA GPU.
 
 Same physics, env and PPO as ``cat_tpu`` (the JAX package, kept as the
-reference), written with envs on the LEADING axis. The contact solve runs
-in hand-written CUDA kernels on the card (``ops/csrc/pgs_bj.cu``, the
-block-Jacobi sweep the envs use; ``ops/csrc/pgs_gs.cu``, the serial
-Gauss-Seidel sweep of the raw engine's default solver) and in their plain
-PyTorch versions on the CPU.
+reference), written with envs on the LEADING axis. On the card a physics
+substep runs in hand-written CUDA kernels: ``ops/csrc/substep_dyn.cu``
+(PD torque, kinematics, M, C, M^-1, the free velocity) and
+``ops/csrc/contact_rows.cu`` (contacts and the solve's rows E, W, b), then
+the contact solve, ``ops/csrc/pgs_bj.cu`` (the block-Jacobi sweep the envs
+use) or ``ops/csrc/pgs_gs.cu`` (the serial Gauss-Seidel sweep of the raw
+engine's default solver). On the CPU their plain PyTorch versions run.
 """
 
 from __future__ import annotations

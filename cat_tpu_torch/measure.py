@@ -216,8 +216,10 @@ def substep_counts(model, n, hfield=False):
     n envs of ``model``: each input read once and each output written once
     (the model's tables and, on a heightfield, one 16-byte corner record a
     probe); the operations as ``csrc/substep_dyn.cu`` and
-    ``csrc/contact_rows.cu`` do them, over the nonzero structure of the
-    Jacobians (a body's or a contact's ancestor joints)."""
+    ``csrc/contact_rows.cu`` do them: M and C by the composite sums over
+    each body's subtree, M entries only for dofs on one chain, the rows of
+    E, b and W over each row's nonzero dofs (a body's or a contact's
+    ancestor joints and the base's six)."""
     nb, nv, nj, nq = model.nbody, model.nv, model.nj, model.nq
     nct, npair, nc = model.ncand_terrain, model.npair, model.ncand
     anc = model.ancestor_mask()
@@ -226,16 +228,21 @@ def substep_counts(model, n, hfield=False):
                   + 3 * nb + nct + 2 * npair)
     dyn_bytes = (4 * n * (nq + nv + nj + nj + nv + nv * nv + 12 * nb + 3 * nj)
                  + tables)
-    # per env: the tree (a body ~450: frames, joint axis, Rodrigues,
-    # the bias recursion, x_com, I_w, force, torque), M and C (a live
-    # column of a body: its Jacobian columns ~20, I_w Jw 15, a row of M
-    # 13 nv, C's entry 12), M^-1, v_free (2 nv^2)
+    # per env: the tree and the bodies' forces (a body ~450: frames, joint
+    # axis, Rodrigues, the bias recursion, x_com, I_w, force, torque) and
+    # their parts of the sums about o0 (~45); the subtree sums (16 adds a
+    # body and member); a dof's motion, momentum and C (~65); an entry of
+    # M on one chain (11); M^-1; v_free (2 nv^2)
+    members = nb + int(anc.sum())           # the base's subtree is all
+    related = sum(1 for k in range(nv) for l in range(nv)
+                  if min(k, l) < 6 or anc[max(k, l) - 5, min(k, l) - 6])
     if model.uniform_3dof_branches():
-        inv = (20 * nj + 30 * nj + 72 * nj + 200 + 432 + 72 * nj
-               + 12 * nj * nj + 2 * nv * nv)
+        # leg inverses, W = X D^-1, S, its Cholesky factor, H, H^T H
+        inv = (45 * (nj // 3) + 30 * nj + 21 * (2 * nj + 1) + 80
+               + 36 * nv + 11 * nv * nv)
     else:
         inv = nv ** 3 // 3 + 2 * nv ** 3
-    dyn_flops = n * (450 * nb + sum(l * (47 + 13 * nv) for l in live)
+    dyn_flops = n * (495 * nb + 16 * members + 65 * nv + 11 * related
                      + inv + 2 * nv * nv)
     row_dofs = []
     for c in range(nct):
@@ -249,10 +256,10 @@ def substep_counts(model, n, hfield=False):
     if hfield:
         con_bytes += n * nct * 5 * 16
     # per env: a candidate's centre 18, on a heightfield 5 probes ~60 and
-    # the frame ~30; a pair ~200; a row of E ~20 a nonzero dof (a pair's
-    # two points ~40), of b 2 nv, of W 2 nonzero dofs for each of nv
+    # the frame ~30; a pair ~200; a row's nonzero entry of E ~20 (a pair's
+    # two points ~40), of b 2, of W's column 2 nv
     geo = nct * (18 + (330 if hfield else 0)) + 200 * npair
-    rows = sum(k * (20 + 2 * nv) + 2 * nv for k in row_dofs[:3 * nct]) + sum(
-        k * (40 + 2 * nv) + 2 * nv for k in row_dofs[3 * nct:])
+    rows = sum(k * (22 + 2 * nv) for k in row_dofs[:3 * nct]) + sum(
+        k * (42 + 2 * nv) for k in row_dofs[3 * nct:])
     return {"substep_dynamics": (dyn_bytes, dyn_flops),
             "contact_rows": (con_bytes, n * (geo + rows))}

@@ -2,8 +2,9 @@
 
 The library is built at first use into ``build/cat_tpu_torch/`` beside the
 package and named by a hash of the source, every header (``*.cuh``) beside
-it and the flags, so a changed source or header builds anew and an
-unchanged one is reused. nvcc writes to a
+it and the flags (``NVCC_FLAGS`` and a caller's extra ones, such as
+``-DSUBSTEP_PHASE_CLOCKS``), so a changed source, header or flag builds
+anew and an unchanged one is reused. nvcc writes to a
 temporary name that ``os.replace`` moves into place: there is no lock file
 to wait on, and a build cut off half way leaves nothing that looks done.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,14 +45,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_shared_library(source: Path) -> Built:
+def build_shared_library(source: Path, flags: tuple = ()) -> Built:
     """Compile ``source`` (a .cu file with an extern "C" interface; its
-    headers sit beside it)."""
+    headers sit beside it) with ``NVCC_FLAGS`` and ``flags``."""
     source = Path(source)
+    flags = NVCC_FLAGS + tuple(flags)
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     key = digest.hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}-{key}.so"
     log_path = out.with_suffix(".log")
@@ -58,7 +61,7 @@ def build_shared_library(source: Path) -> Built:
         return Built(out, log_path.read_text(), 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(source.parent), "-o", str(tmp),
+    cmd = [find_nvcc(), *flags, "-I", str(source.parent), "-o", str(tmp),
            str(source)]
     t0 = time.perf_counter()
     try:
@@ -76,3 +79,33 @@ def build_shared_library(source: Path) -> Built:
     finally:
         tmp.unlink(missing_ok=True)
     return Built(out, log, time.perf_counter() - t0)
+
+
+def ptxas_resources(log: str) -> dict:
+    """{entry function: dict(registers, stack, spill_stores, spill_loads)}
+    from the ``-Xptxas -v`` lines of an nvcc log (``Built.log``); a
+    template's instantiation is named ``kernel<arg>``."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)EE)?",
+                              name)
+            fn = (name if short is None else short.group(1)
+                  + (f"<{short.group(2)}>" if short.group(2) else ""))
+            out[fn] = dict(registers=None, stack=0, spill_stores=0,
+                           spill_loads=0)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out

@@ -14,28 +14,49 @@
 //
 // What bounds it on an H100: the bytes it must write. Per env at Solo12's
 // shape it reads the kinematics, M^-1 and v_free (~2.2 KB) and writes E
-// and W (2 x 108 x 18 floats), b, phi and the frames (~17 KB); ~34 k
-// operations. At N = 4096 that is ~80 MB (24 us at 3.35 TB/s) against
-// ~0.14 GFLOP (2 us). The design writes each output once, coalesced, and
-// keeps everything else in the warp's slice of shared memory (6.8 KB at
-// Solo12's shape):
+// and W (2 x 108 x 18 floats), b, phi and the frames (~17 KB). At N =
+// 4096 that is ~80 MB (24 us at 3.35 TB/s). All 4096 warps are resident
+// at once (8 blocks of 4 warps an SM) and move through the same phases
+// together, so the store stream only starts once the rows do; what comes
+// before it, and each warp's instruction stream, is what the design cuts.
+// The first design read its operands one dependent load after another
+// and built every row over all dof slots, half of them zeros. This one:
+//   * issues every operand's copy to the warp's slice of shared memory at
+//     once (cp.async, 4 bytes a copy; M^-1 lands transposed) and waits
+//     once;
 //   * a lane a contact (two passes for 36) finds the contact's points,
 //     phi and frame; on a heightfield the five probes of the deepest
 //     column, each a bilinear height and gradient from one 16-byte read of
 //     the packed corner table, rounded op by op as the plain version's on
-//     the CPU, with its clamped, NaN-safe indexing;
-//   * a lane a row of E (four passes of 32 for 108) builds the row in
-//     kD registers (the template argument, 8, 24 or 32 >= nv) from the
-//     point Jacobian's columns (base, then the ancestor joints of the
-//     contact's body or bodies: the other entries are zero, as in
-//     pgs.contact_row_dofs), sums b's entry and the row's column of W,
-//     M^-1's rows read four floats at a time from shared memory, writes W
-//     (a pass's lanes write 32 consecutive floats) and stages the row;
-//     the pass's 32 rows of E, contiguous in E, then go out in one
-//     coalesced write.
-// At 64 registers an SM holds 8 blocks: 4096 envs run in one wave.
-// The summation order is fixed and no atomics are used: a launch is
-// deterministic bit for bit.
+//     the CPU, with its clamped, NaN-safe indexing (unchanged);
+//   * then a pass of 32 rows at a time, a lane a row, on the row's nonzero
+//     dofs alone (the base's six and the ancestor joints of the contact's
+//     body or bodies, as pgs.contact_row_dofs): the base's entries in
+//     closed form (f for the translation, R0 e_k . ((x - o0) x f) for the
+//     rotation), a joint's as a_j . ((x - p_j) x f) from its axis and
+//     origin packed in two float4, a pair's two points subtracted; they go
+//     into the pass's block of E, staged in shared memory and zeroed
+//     first, and b's entry sums over them;
+//   * W's column is the sum over the same nonzero dofs l of E[r][l] times
+//     column l of M^-1 (M^-1 kept transposed, rows padded to four floats,
+//     read four at a time), kK = 12 dofs at a time in registers (chunks
+//     of 12 for nv > 12), and leaves the registers
+//     as it stands: a pass's lanes store 32 consecutive floats of a row of
+//     W, one 128-byte line a store (a shared tile of W would not fit
+//     beside the rest at 8 blocks an SM); the pass's block of E, 32 rows
+//     contiguous in E, leaves in 16-byte stores.
+// At most 64 registers and no spills: an SM holds 8 blocks and 4096 envs
+// run in one wave. The
+// summation order is fixed and no atomics are used: a launch is
+// deterministic bit for bit. Measured (chip_smoke.py kernel-dyn, H100
+// 80GB HBM3 at 700 W): 0.057 ms on flat states, 42% of the byte bound
+// (the first design 0.067 ms, 36%), most of it in the rows and W phases,
+// which carry the store stream.
+//
+// Phases of the phase-clock build (-DSUBSTEP_PHASE_CLOCKS): detection (the
+// operands' copies, points, phi and frames, and the frames' write), rows
+// (E's nonzero entries and b), W (W's columns and their stores), writes
+// (E's staged blocks); the last three summed over the passes.
 //
 // Layout: envs leading and contiguous: R (N, nb, 3, 3), o (N, nb, 3), a_w
 // (N, nj, 3), minv (N, nv, nv), v_free (N, nv); hfield ((R-1)(C-1), 4)
@@ -67,25 +88,25 @@ struct ConArgs {
   float cell, umax, vmax;    // umax = R - 1.001, vmax = C - 1.001
 };
 
-// One warp's slice of shared memory, in floats: the kinematics, M^-1,
-// v_free, and each contact's points (pa: the candidate's centre or body A's
-// closest point; pb: body B's) and frame.
-// M^-1's rows are padded to ld = nv rounded up to 4 (zeros), for float4
-// reads; a pass's 32 rows of E are staged there for one coalesced write.
+// One warp's slice of shared memory, in floats: M^-1 transposed (row l is
+// column l of M^-1, padded to ld = nv rounded up to 4 with zeros, for
+// float4 reads), a pass's 32 rows of E, each joint's world axis and
+// origin (2 float4), R, o, v_free, each contact's points (pa: the
+// candidate's centre or body A's closest point; pb: body B's) and frame.
 struct ConLayout {
-  int ld, Minv, R, o, aw, vf, pa, pb, fr, rows, words;
+  int ld, MinvT, rows, jt, R, o, vf, pa, pb, fr, words;
   __host__ __device__ ConLayout(int nb, int nv, int nc) {
     ld = (nv + 3) & ~3;
     int p = 0;
-    Minv = p; p += nv * ld;
-    R = p;    p += 9 * nb;
-    o = p;    p += 3 * nb;
-    aw = p;   p += 3 * nb;
-    vf = p;   p += nv;
-    pa = p;   p += 3 * nc;
-    pb = p;   p += 3 * nc;
-    fr = p;   p += 9 * nc;
-    rows = p; p += kWarp * nv;
+    MinvT = p; p += nv * ld;
+    rows = p;  p += kWarp * nv;    // offsets a multiple of 4 so far
+    jt = p;    p += 8 * (nb - 1);
+    R = p;     p += 9 * nb;
+    o = p;     p += 3 * nb;
+    vf = p;    p += nv;
+    pa = p;    p += 3 * nc;
+    pb = p;    p += 3 * nc;
+    fr = p;    p += 9 * nc;
     words = (p + 3) & ~3;
   }
 };
@@ -150,27 +171,26 @@ __device__ __forceinline__ V3 normalise(V3 v) {
   return scale(1.f / sqrtf(dot(v, v)), v);
 }
 
-// Column k of the world Jacobian of the point x fixed to a body whose
-// chain from the base holds the joints of `mask` (sim/dynamics.py
-// point_jacobians): the base's translation, its rotation, then the joints.
-__device__ __forceinline__ V3 jac_col(int k, V3 x, unsigned mask,
-                                      const float* R, const float* o,
-                                      const float* aw) {
-  if (k < 3) return V3{k == 0 ? 1.f : 0.f, k == 1 ? 1.f : 0.f,
-                       k == 2 ? 1.f : 0.f};
-  if (k < 6) return scale(-1.f, cross(sub(x, ld3(o)), col(R, k - 3)));
-  const int j = k - 6;
-  if (!((mask >> j) & 1u)) return V3{0.f, 0.f, 0.f};
-  return cross(ld3(aw + 3 * j), sub(x, ld3(o + 3 * (j + 1))));
+// The dofs of W's column a lane holds in registers at a time (a multiple
+// of 4; 12 keeps the kernel at 64 registers without spills).
+constexpr int kK = 12;
+
+// acc[k] += M^-1[k0 + k][l] v for k < min(kK, nv - k0): column l of M^-1
+// (row l of MinvT from k0) read four floats at a time
+__device__ __forceinline__ void axpy(float* acc, const float* MinvT_l,
+                                     float v, int left) {
+  const float4* m = reinterpret_cast<const float4*>(MinvT_l);
+#pragma unroll
+  for (int q = 0; q < kK / 4; ++q)
+    if (4 * q < left) {
+      const float4 m4 = m[q];
+      acc[4 * q] += m4.x * v;
+      acc[4 * q + 1] += m4.y * v;
+      acc[4 * q + 2] += m4.z * v;
+      acc[4 * q + 3] += m4.w * v;
+    }
 }
 
-__device__ __forceinline__ float comp(V3 v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : v.z);
-}
-
-// kD: the dof slots a lane's row of E takes in registers (>= nv, a
-// multiple of 4)
-template <int kD>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 contact_rows_kernel(const ConArgs a) {
   extern __shared__ float4 smem4[];
@@ -179,6 +199,7 @@ contact_rows_kernel(const ConArgs a) {
   const int warp = threadIdx.x / kWarp;
   const int env = blockIdx.x * kWarps + warp;
   if (env >= a.n_env) return;        // the whole warp
+  PhaseClock clk(env, lane);
   const int nb = a.nb, nv = a.nv, nj = nb - 1, nct = a.nct;
   const int nc = nct + a.npair, n3 = 3 * nc;
   const ConLayout Ly(nb, nv, nc);
@@ -189,8 +210,8 @@ contact_rows_kernel(const ConArgs a) {
   float* s = smem + static_cast<size_t>(warp) * Ly.words;
   float* R = s + Ly.R;
   float* o = s + Ly.o;
-  float* aw = s + Ly.aw;
-  float* Minv = s + Ly.Minv;
+  float4* jt = reinterpret_cast<float4*>(s + Ly.jt);
+  float* MinvT = s + Ly.MinvT;
   float* vf = s + Ly.vf;
   float* pa = s + Ly.pa;
   float* pb = s + Ly.pb;
@@ -198,15 +219,37 @@ contact_rows_kernel(const ConArgs a) {
   float* rows = s + Ly.rows;
   const int ld = Ly.ld;
 
+  // the operands, every copy in flight at once (a_w lands in the rows'
+  // staging, free until the first pass); M^-1 read row by row, stored
+  // transposed
   const size_t e = static_cast<size_t>(env);
-  for (int i = lane; i < 9 * nb; i += kWarp) R[i] = a.R[e * 9 * nb + i];
-  for (int i = lane; i < 3 * nb; i += kWarp) o[i] = a.o[e * 3 * nb + i];
-  for (int i = lane; i < 3 * nj; i += kWarp) aw[i] = a.a_w[e * 3 * nj + i];
-  for (int i = lane; i < nv * ld; i += kWarp) {
-    const int r = i / ld, c = i % ld;
-    Minv[i] = c < nv ? a.minv[(e * nv + r) * nv + c] : 0.f;
+  float* aw = rows;
+  for (int i = lane; i < 9 * nb; i += kWarp)
+    copy4(R + i, a.R + e * 9 * nb + i);
+  for (int i = lane; i < 3 * nb; i += kWarp)
+    copy4(o + i, a.o + e * 3 * nb + i);
+  for (int i = lane; i < 3 * nj; i += kWarp)
+    copy4(aw + i, a.a_w + e * 3 * nj + i);
+  for (int i = lane, r = lane / nv, c = lane % nv; i < nv * nv; i += kWarp) {
+    copy4(MinvT + c * ld + r, a.minv + e * nv * nv + i);
+    c += kWarp;
+    while (c >= nv) {
+      c -= nv;
+      ++r;
+    }
   }
-  for (int i = lane; i < nv; i += kWarp) vf[i] = a.v_free[e * nv + i];
+  for (int i = lane; i < nv; i += kWarp) copy4(vf + i, a.v_free + e * nv + i);
+  for (int i = lane; i < nv * (ld - nv); i += kWarp) {
+    const int pad = ld - nv;
+    MinvT[(i / pad) * ld + nv + i % pad] = 0.f;
+  }
+  copy_wait();
+  for (int j = lane; j < nj; j += kWarp) {
+    jt[2 * j] = make_float4(aw[3 * j], aw[3 * j + 1], aw[3 * j + 2],
+                            o[3 * (j + 1)]);
+    jt[2 * j + 1] = make_float4(o[3 * (j + 1) + 1], o[3 * (j + 1) + 2], 0.f,
+                                0.f);
+  }
   __syncwarp();
 
   // a lane a terrain candidate: the sphere centre, phi, the frame
@@ -279,70 +322,91 @@ contact_rows_kernel(const ConArgs a) {
     float* out = a.frame + e * 9 * nc;
     for (int i = lane; i < 9 * nc; i += kWarp) out[i] = fr[i];
   }
+  clk.lap(0);
 
-  // a lane a row r of E: contact r / 3, frame row r % 3; a pass of 32 rows
-  // at a time, staged in shared memory for one coalesced write of E
+  // a pass of 32 rows at a time, a lane a row r: contact r / 3, frame row
+  // r % 3
   const unsigned* anc = reinterpret_cast<const unsigned*>(ti + it.anc);
+  float4* rows4 = reinterpret_cast<float4*>(rows);
+  const V3 o0 = ld3(o);
   for (int r0 = 0; r0 < n3; r0 += kWarp) {
+    for (int i = lane; i < kWarp * nv / 4; i += kWarp)
+      rows4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncwarp();
     const int r = r0 + lane;
+    unsigned mj = 0u;                // the row's joints
+    float* row = rows + lane * nv;
     if (r < n3) {
       const int c = r / 3, i = r % 3;
       const V3 f = ld3(fr + 9 * c + 3 * i);
-      float row[kD];
-#pragma unroll
-      for (int k = 0; k < kD; ++k) row[k] = 0.f;
-      if (c < nct) {
-        const V3 x = ld3(pa + 3 * c);
-        const unsigned mask = anc[ti[it.cand_body + c]];
-        const bool plane = a.hfield == nullptr;
-#pragma unroll
-        for (int k = 0; k < kD; ++k)
-          if (k < nv) {
-            const V3 J = jac_col(k, x, mask, R, o, aw);
-            // on the plane the rows are the Jacobian's own (the world frame)
-            row[k] = plane ? comp(J, i) : dot(f, J);
-          }
-      } else {
-        const int p = c - nct;
-        const unsigned ma = anc[ti[it.pair_a + p]];
-        const unsigned mb = anc[ti[it.pair_b + p]];
-        const V3 ca = ld3(pa + 3 * c), cb = ld3(pb + 3 * c);
-#pragma unroll
-        for (int k = 0; k < kD; ++k)
-          if (k < nv)
-            row[k] = dot(f, sub(jac_col(k, ca, ma, R, o, aw),
-                                jac_col(k, cb, mb, R, o, aw)));
-      }
+      const bool pair = c >= nct;
+      const unsigned ma =
+          anc[ti[pair ? it.pair_a + c - nct : it.cand_body + c]];
+      const unsigned mb = pair ? anc[ti[it.pair_b + c - nct]] : 0u;
+      const V3 xa = ld3(pa + 3 * c);
+      const V3 xb = pair ? ld3(pb + 3 * c) : xa;
+      mj = ma | mb;
+      // the base: f . e_k (0 for a pair: both points move with the base),
+      // then f . (R0 e_k x (x - o0)) = R0 e_k . ((x - o0) x f), a pair's
+      // two points subtracted
+      const V3 u = cross(pair ? sub(xa, xb) : sub(xa, o0), f);
+      const float eb[6] = {pair ? 0.f : f.x, pair ? 0.f : f.y,
+                           pair ? 0.f : f.z, dot(col(R, 0), u),
+                           dot(col(R, 1), u), dot(col(R, 2), u)};
       float bb = 0.f;
 #pragma unroll
-      for (int k = 0; k < kD; ++k)
-        if (k < nv) {
-          rows[lane * nv + k] = row[k];
-          bb += row[k] * vf[k];
-        }
+      for (int k = 0; k < 6; ++k) {
+        row[k] = eb[k];
+        bb += eb[k] * vf[k];
+      }
+      // a joint j on the chain: f . (a_j x (x - p_j)) = a_j . ((x - p_j)
+      // x f), body B's point subtracted
+      for (unsigned rest = mj; rest != 0u; rest &= rest - 1u) {
+        const int j = __ffs(rest) - 1;
+        const float4 j0 = jt[2 * j], j1 = jt[2 * j + 1];
+        const V3 ax = {j0.x, j0.y, j0.z}, pj = {j0.w, j1.x, j1.y};
+        float v = 0.f;
+        if ((ma >> j) & 1u) v = dot(ax, cross(sub(xa, pj), f));
+        if ((mb >> j) & 1u) v -= dot(ax, cross(sub(xb, pj), f));
+        row[6 + j] = v;
+        bb += v * vf[6 + j];
+      }
       a.b[e * n3 + r] = bb;
-      // W's column r: M^-1 times the row (zero off the row's nonzero dofs
-      // and in the padding), rows of M^-1 read four at a time
-      float* Wr = a.W + e * nv * n3 + r;
-#pragma unroll 1
-      for (int k = 0; k < nv; ++k) {
-        const float4* Mk = reinterpret_cast<const float4*>(Minv + k * ld);
-        float acc = 0.f;
+    }
+    clk.lap(1);
+    // W's column r, kK dofs at a time: the sum over the row's nonzero dofs
+    // l of E[r][l] times column l of M^-1
+    for (int k0 = 0; k0 < nv; k0 += kK) {
+      float acc[kK];
 #pragma unroll
-        for (int q = 0; q < kD / 4; ++q)
-          if (4 * q < nv) {
-            const float4 m4 = Mk[q];
-            acc += m4.x * row[4 * q] + m4.y * row[4 * q + 1] +
-                   m4.z * row[4 * q + 2] + m4.w * row[4 * q + 3];
-          }
-        Wr[static_cast<size_t>(k) * n3] = acc;
+      for (int k = 0; k < kK; ++k) acc[k] = 0.f;
+      if (r < n3) {
+#pragma unroll
+        for (int l = 0; l < 6; ++l)
+          axpy(acc, MinvT + l * ld + k0, row[l], nv - k0);
+        for (unsigned rest = mj; rest != 0u; rest &= rest - 1u) {
+          const int l = 6 + __ffs(rest) - 1;
+          axpy(acc, MinvT + l * ld + k0, row[l], nv - k0);
+        }
+        float* Wr = a.W + (e * nv + k0) * n3 + r;
+#pragma unroll
+        for (int k = 0; k < kK; ++k)
+          if (k0 + k < nv) Wr[static_cast<size_t>(k) * n3] = acc[k];
       }
     }
     __syncwarp();
+    clk.lap(2);
+    // the pass's rows of E, contiguous in E: 16-byte stores when aligned
     const int count = (n3 - r0 < kWarp ? n3 - r0 : kWarp) * nv;
     float* Eo = a.E + (e * n3 + r0) * nv;
-    for (int i = lane; i < count; i += kWarp) Eo[i] = rows[i];
+    if ((reinterpret_cast<uintptr_t>(Eo) & 15u) == 0 && count % 4 == 0) {
+      float4* Eo4 = reinterpret_cast<float4*>(Eo);
+      for (int i = lane; i < count / 4; i += kWarp) Eo4[i] = rows4[i];
+    } else {
+      for (int i = lane; i < count; i += kWarp) Eo[i] = rows[i];
+    }
     __syncwarp();
+    clk.lap(3);
   }
 }
 
@@ -356,16 +420,28 @@ const char* contact_rows_error_string(int err) {
 
 // Once a device, before the first launch there.
 int contact_rows_setup(int device) {
-  int err = substep::setup_device(contact_rows_kernel<8>, device);
-  if (!err) err = substep::setup_device(contact_rows_kernel<24>, device);
-  if (!err) err = substep::setup_device(contact_rows_kernel<32>, device);
-  return err;
+  return substep::setup_device(contact_rows_kernel, device);
 }
 
 // Bytes of shared memory a block of the kernel takes at this shape.
 size_t contact_rows_block_bytes(int nb, int nv, int nc) {
   return sizeof(float) * ConLayout(nb, nv, nc).words * substep::kWarps;
 }
+
+// Blocks an SM holds at this shape (after contact_rows_setup on the
+// current device), or -1.
+int contact_rows_blocks_per_sm(int nb, int nv, int nc) {
+  return substep::blocks_per_sm(contact_rows_kernel,
+                                contact_rows_block_bytes(nb, nv, nc));
+}
+
+#ifdef SUBSTEP_PHASE_CLOCKS
+// The phase-clock build only: where the next launches add each env's
+// cycles a phase (int64 (n_env, kPhaseSlots), zeroed), or null.
+int contact_rows_set_phase_cycles(void* buf) {
+  return substep::set_phase_cycles(buf);
+}
+#endif
 
 // Launch over n_env envs on `stream` (a cudaStream_t of the current
 // device); returns the cudaError_t of the launch. hfield null: the plane
@@ -392,12 +468,7 @@ int contact_rows_launch(const float* R, const float* o, const float* a_w,
   const int grid = (n_env + substep::kWarps - 1) / substep::kWarps;
   const size_t smem = contact_rows_block_bytes(nb, nv, nc);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nv <= 8)
-    contact_rows_kernel<8><<<grid, substep::kThreads, smem, st>>>(a);
-  else if (nv <= 24)
-    contact_rows_kernel<24><<<grid, substep::kThreads, smem, st>>>(a);
-  else
-    contact_rows_kernel<32><<<grid, substep::kThreads, smem, st>>>(a);
+  contact_rows_kernel<<<grid, substep::kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

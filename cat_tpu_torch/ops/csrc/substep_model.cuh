@@ -127,9 +127,83 @@ __device__ __forceinline__ void mmt(const float* A, const float* B, float* C) {
                      A[3 * i + 2] * B[3 * j + 2];
 }
 
+// A 4-byte copy from device memory to shared memory that does not wait
+// (cp.async): a lane issues all its copies, then copy_wait waits for them
+// and makes every lane's visible to the warp.
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *static_cast<unsigned*>(dst) = *static_cast<const unsigned*>(src);
+#endif
+}
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+  __syncwarp();
+}
+
 // torch.clamp's semantics: NaN passes through
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The phase-clock build (nvcc -DSUBSTEP_PHASE_CLOCKS, a library of its
+// own; the production library never defines the macro): lane 0 of each
+// warp adds the clock64() cycles of each phase of its env to
+// phase_cycles[env][k] (the phases are each kernel's, in its header), once
+// the whole warp has left the phase, by a reduction that does not wait on
+// memory. In the production build `lap` is empty.
+constexpr int kPhaseSlots = 8;
+#ifdef SUBSTEP_PHASE_CLOCKS
+__device__ unsigned long long* phase_cycles;  // (n_env, kPhaseSlots) or null
+__device__ __forceinline__ long long phase_now() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct PhaseClock {
+  unsigned long long* out;
+  long long last;
+  __device__ PhaseClock(int env, int lane)
+      : out(lane == 0 && phase_cycles ? phase_cycles + env * kPhaseSlots
+                                      : nullptr),
+        last(phase_now()) {}
+  __device__ void lap(int k) {
+    __syncwarp();
+    if (out) {
+      const long long t = phase_now();
+      atomicAdd(out + k, static_cast<unsigned long long>(t - last));
+      last = t;
+    }
+  }
+};
+inline int set_phase_cycles(void* buf) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(phase_cycles, &buf, sizeof(void*)));
+}
+#else
+struct PhaseClock {
+  __device__ PhaseClock(int, int) {}
+  __device__ void lap(int) {}
+};
+#endif
+
+// Blocks of `kernel` an SM holds with `smem` bytes of dynamic shared memory
+// a block, or -1 on an error.
+template <class Kernel>
+int blocks_per_sm(Kernel kernel, size_t smem) {
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                       smem) == cudaSuccess
+             ? n
+             : -1;
 }
 
 // Lets `kernel` use all the shared memory a block may opt into on

@@ -19,6 +19,12 @@ tensor they run the plain version. There is no fallback from the card to
 the plain version. The model's tables (``model_tables``) go to the card
 once a ``ModelTensors`` and wrapper, the heightfield's packed corners once
 a terrain.
+
+``SubstepDynKernel(clocks=True)`` / ``ContactRowsKernel(clocks=True)`` bind
+each kernel's phase-clock build (``-DSUBSTEP_PHASE_CLOCKS``, a library of
+its own): ``phase_cycles`` returns each env's clock cycles in each of the
+kernel's ``phases`` over one launch. ``chip_smoke.py``'s kernel-dyn phase
+prints their medians; no path of the program uses them.
 """
 
 from __future__ import annotations
@@ -41,6 +47,11 @@ DYN_SOURCE = CSRC / "substep_dyn.cu"
 CONTACT_SOURCE = CSRC / "contact_rows.cu"
 MAX_DOFS = 32            # a lane of the warp owns each dof
 MAX_CONTACTS = 64
+# the phase-clock build of a kernel (``_SubstepKernel(clocks=True)``): a
+# library of its own; the production library is never built with it
+PHASE_CLOCK_FLAGS = ("-DSUBSTEP_PHASE_CLOCKS",)
+PHASE_SLOTS = 8          # csrc/substep_model.cuh kPhaseSlots
+ENVS_PER_BLOCK = 4       # csrc/substep_model.cuh kWarps: one warp an env
 # the two stages' outputs, in order (``substep_dynamics``'s kin flattened)
 DYN_OUTPUTS = ("tau_j", "v_free", "Minv", "R", "o", "a_w")
 CONTACT_OUTPUTS = ("E", "W", "b", "phi", "frame")
@@ -124,14 +135,18 @@ class _SubstepKernel:
     the kernel is allowed all the shared memory a block may opt into; once
     a ``ModelTensors`` and device, its tables go to the device (cached by
     the identity of ``mt``: a CUDA graph's capture may copy nothing from
-    the host, and the first, eager call of a control step builds them)."""
+    the host, and the first, eager call of a control step builds them).
+    ``clocks=True`` binds the phase-clock build instead (``phase_cycles``);
+    the module's own wrappers never do."""
 
     prefix = ""
     source: Path
     launch_argtypes: list = []
     bytes_argtypes: list = []
+    phases: tuple = ()       # the kernel's phases, as its phase clocks count
 
-    def __init__(self):
+    def __init__(self, clocks: bool = False):
+        self.clocks = clocks
         self.launches = 0
         self.built: Optional[build.Built] = None
         self._lib = None
@@ -150,13 +165,17 @@ class _SubstepKernel:
 
     def load(self) -> build.Built:
         if self._lib is None:
-            self.built = build.build_shared_library(self.source)
+            self.built = build.build_shared_library(
+                self.source, PHASE_CLOCK_FLAGS if self.clocks else ())
             self._lib = ctypes.CDLL(str(self.built.path))
             for name, args, res in (
                     ("launch", self.launch_argtypes, _I),
                     ("block_bytes", self.bytes_argtypes, ctypes.c_size_t),
+                    ("blocks_per_sm", self.bytes_argtypes, _I),
                     ("error_string", [_I], ctypes.c_char_p),
-                    ("setup", [_I], _I)):
+                    ("setup", [_I], _I)) + (
+                        (("set_phase_cycles", [_P], _I),) if self.clocks
+                        else ()):
                 self._fn(name).argtypes = args
                 self._fn(name).restype = res
         return self.built
@@ -171,14 +190,50 @@ class _SubstepKernel:
         self.load()
         return self._fn("block_bytes")(*shape)
 
+    def blocks_per_sm(self, device, *shape) -> int:
+        """Blocks of the kernel an SM of ``device`` holds at this shape
+        (the CUDA occupancy calculator)."""
+        self.load()
+        index = torch.device(device).index
+        if index is None:
+            index = torch.cuda.current_device()
+        self._setup(index)
+        with torch.cuda.device(index):
+            n = self._fn("blocks_per_sm")(*shape)
+        if n < 0:
+            raise RuntimeError(f"{self.prefix} occupancy query failed")
+        return n
+
+    def phase_cycles(self, n: int, device, call) -> torch.Tensor:
+        """int64 (n, len(phases)): each env's clock64() cycles in each
+        phase of the one launch ``call()`` makes (the phase-clock build)."""
+        if not self.clocks:
+            raise RuntimeError("phase clocks need _SubstepKernel(clocks=True)")
+        self.load()
+        buf = torch.zeros(n, PHASE_SLOTS, dtype=torch.int64, device=device)
+        with torch.cuda.device(device):
+            self._raise_on(self._fn("set_phase_cycles")(buf.data_ptr()),
+                           "setting the phase clocks")
+            try:
+                call()
+                torch.cuda.synchronize(device)
+            finally:
+                self._raise_on(self._fn("set_phase_cycles")(None),
+                               "clearing the phase clocks")
+        return buf[:, :len(self.phases)]
+
+    def _setup(self, index: int):
+        """Once a device (its index), before the first launch there."""
+        if index not in self._devices:
+            self._raise_on(self._fn("setup")(index), "setup")
+            self._devices.add(index)
+
     def _launch(self, like: torch.Tensor, args):
         """Launch over ``args`` on ``like``'s device and current stream;
         count it."""
         self.load()
         device, stream = _device_and_stream(like)
-        if device not in self._devices:
-            self._raise_on(self._fn("setup")(device), "setup")
-            self._devices.add(device)
+        self._setup(device)
         launch = self._fn("launch")
         if device == torch.cuda.current_device():
             err = launch(*args, stream)
@@ -194,6 +249,8 @@ class SubstepDynKernel(_SubstepKernel):
 
     prefix = "substep_dyn"
     source = DYN_SOURCE
+    phases = ("PD", "tree walk", "body forces", "M/C", "M^-1", "v_free",
+              "writes")
     # qpos qvel target com_offset ftab itab, out tau_j v_free minv R o a_w,
     # n nb nv max_depth, kp kd h, schur, stream
     launch_argtypes = [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P]
@@ -230,6 +287,7 @@ class ContactRowsKernel(_SubstepKernel):
 
     prefix = "contact_rows"
     source = CONTACT_SOURCE
+    phases = ("detection", "rows", "W", "writes")
     # R o a_w minv v_free ftab itab hfield, out E W b phi frame,
     # n nb nv nct npair hrows hcols, cell, stream
     launch_argtypes = [_P] * 13 + [_I] * 7 + [_F, _P]

@@ -6,8 +6,9 @@
 Phases, each printed with its elapsed seconds:
   device: the card, its power limit, the torch and CUDA versions;
   build: the four kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu
-     and contact_rows.cu, one plain nvcc each, started together, with
-     ptxas's registers, stack and spills;
+     and contact_rows.cu, and the phase-clock builds of the last two
+     (-DSUBSTEP_PHASE_CLOCKS, libraries of their own), one plain nvcc
+     each, started together, with ptxas's registers, stack and spills;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
      N = 4096, on contact problems captured from the port's flat Solo12 env
      (36 contacts) and from its Go2 env (28 contacts), on seeded random
@@ -25,14 +26,18 @@ Phases, each printed with its elapsed seconds:
      contact_rows) against their plain versions (sim/engine.py
      dynamics_stage, contact_stage; the contact kernel fed the plain
      dynamics' outputs) on states captured on the card at N = 4096: the
-     flat env (Solo12), the same with random CoM offsets, the raw engine on
-     the production rough terrain, Go2's env and the box on its slope;
+     flat env (Solo12), the same with random CoM offsets and in fast
+     motion, the raw engine on the production rough terrain, Go2's env
+     and the box on its slope;
      every output within ``measure.STAGE_TOL`` (on a heightfield without
      the contacts whose normal a rounding may switch, at most 2%), the max
-     abs and relative error of each printed; then each kernel's time on
-     the flat and rough states as CUDA-graph replays, the plain stages'
-     replayed and eager, the bound (``measure.substep_counts``) and its
-     share;
+     abs and relative error of each printed; on each state one launch of
+     each kernel's phase-clock build, the median cycles an env of each
+     phase; then each kernel's time on the flat and rough states as
+     CUDA-graph replays, the plain stages' replayed and eager, the bound
+     (``measure.substep_counts``) and its share; last each kernel's ptxas
+     registers and spills, and at Solo12's shape its shared memory a
+     block and blocks an SM: 4096 envs must run in one wave, unspilled;
   graph: the control step's CUDA graph (``Engine.__call__`` on the card)
      against the eager substep loop (``Engine._eager``) in each engine
      configuration the port runs: the flat env's block-Jacobi engine at
@@ -423,12 +428,24 @@ def train_argv(task, logdir, iters, *extra):
 SUBSTEP_ROWS: dict = {}
 
 
-def substep_kernels():
-    """(row name, wrapper) of the substep's two kernels."""
+# the phase-clock builds of the substep kernels (made by substep_kernels)
+CLOCK_KERNELS: tuple = ()
+
+
+def substep_kernels(clocks=False):
+    """(row name, wrapper) of the substep's two kernels; with ``clocks``,
+    wrappers of their phase-clock builds (never on a path)."""
+    global CLOCK_KERNELS
     from cat_tpu_torch.ops import substep
 
-    return (("substep_dynamics", substep.DYN_KERNEL),
-            ("contact_rows", substep.CONTACT_KERNEL))
+    if not clocks:
+        return (("substep_dynamics", substep.DYN_KERNEL),
+                ("contact_rows", substep.CONTACT_KERNEL))
+    if not CLOCK_KERNELS:
+        CLOCK_KERNELS = (
+            ("substep_dynamics", substep.SubstepDynKernel(clocks=True)),
+            ("contact_rows", substep.ContactRowsKernel(clocks=True)))
+    return CLOCK_KERNELS
 
 
 def zero_counts():
@@ -870,9 +887,12 @@ def substep_states(dev):
     """kernel-dyn: (name, engine, state, target, CoM offset or None) of
     each configuration on the card, its state captured from a run: the flat
     env (Solo12, N_ENVS, after 5 steps of random actions), the same with
-    random CoM offsets on every body, the raw engine on the production
-    rough terrain (after 5 control steps on the pads), Go2's env (after 5
-    steps), the box on its slope (after 10 control steps)."""
+    random CoM offsets on every body, the same in fast motion (velocities
+    drawn as tests/_substep_cases.py's "solo12-fast": the base's linear in
+    +-2 m/s, its angular in +-5 rad/s, the joints' in +-10 rad/s), the raw
+    engine on the production rough terrain (after 5 control steps on the
+    pads), Go2's env (after 5 steps), the box on its slope (after 10
+    control steps)."""
     import torch
 
     from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
@@ -896,6 +916,11 @@ def substep_states(dev):
                                    generator=gen, device=dev) - 1.0)
     yield "flat", eng, s, target, None
     yield "flat-com", eng, s, target, com
+    span = torch.tensor([2.0] * 3 + [5.0] * 3 + [10.0] * eng.mt.model.nj,
+                        device=dev)
+    fast = span * (2.0 * torch.rand(N_ENVS, eng.mt.model.nv, generator=gen,
+                                    device=dev) - 1.0)
+    yield "flat-fast", eng, s._replace(qvel=fast), target, None
     eng, s, target, mu, _ = raw_engine_on_rough(dev)
     for _ in range(5):
         s = eng(s, target, mu)
@@ -950,6 +975,65 @@ def compare_stages(phase, label, mt, terrain, kern, kern_c, plain, plain_c,
     return worst
 
 
+def phase_clock_line(phase, label, mt, params, terr, args, kin, Minv,
+                     v_free):
+    """kernel-dyn: one launch of each kernel's phase-clock build on a
+    state; logs the median cycles an env of each phase."""
+    clocked = dict(substep_kernels(clocks=True))
+    dyn, con = clocked["substep_dynamics"], clocked["contact_rows"]
+    n = v_free.shape[0]
+    for name, kernel, call in (
+            ("substep_dynamics", dyn, lambda: dyn(mt, params, *args)),
+            ("contact_rows", con, lambda: con(mt, terr, kin, Minv, v_free))):
+        cyc = kernel.phase_cycles(n, v_free.device, call).double()
+        med = cyc.median(dim=0).values.tolist()
+        total = cyc.sum(dim=1).median().item()
+        log(phase, f"{label}, {name} phase clocks (median cycles an env "
+                   f"over {n}, the -DSUBSTEP_PHASE_CLOCKS build): "
+                   + ", ".join(f"{p} {c:.0f}" for p, c in
+                               zip(kernel.phases, med))
+                   + f"; total {total:.0f}")
+
+
+def substep_resources(phase, dev):
+    """kernel-dyn: each substep kernel's ptxas resources (every entry
+    function of its library) and, at Solo12's shape, its shared memory a
+    block and the blocks an SM holds (the occupancy calculator); fails
+    unless N_ENVS envs run there in one wave and no entry function
+    spills."""
+    import torch
+
+    from cat_tpu_torch.models.solo12 import solo12_model
+    from cat_tpu_torch.ops import build, substep
+
+    m = solo12_model()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {"substep_dynamics": (m.nbody, m.nv),
+              "contact_rows": (m.nbody, m.nv, m.ncand)}
+    bad = []
+    for name, kernel in substep_kernels():
+        for fn, r in build.ptxas_resources(kernel.built.log).items():
+            log(phase, f"{name}: {fn}: {r['registers']} registers, "
+                       f"{r['spill_stores']} B spill stores, "
+                       f"{r['spill_loads']} B spill loads, {r['stack']} B "
+                       f"stack frame")
+            if r["spill_stores"] or r["spill_loads"]:
+                bad.append(f"{fn} spills")
+        smem = kernel.block_bytes(*shapes[name])
+        per_sm = kernel.blocks_per_sm(dev, *shapes[name])
+        blocks = -(-N_ENVS // substep.ENVS_PER_BLOCK)
+        waves = -(-blocks // (per_sm * sms))
+        log(phase, f"{name} at Solo12's shape: {smem} B of shared memory a "
+                   f"block of {substep.ENVS_PER_BLOCK} envs, {per_sm} blocks "
+                   f"an SM (occupancy calculator); {N_ENVS} envs = {blocks} "
+                   f"blocks over {sms} SMs x {per_sm} = {per_sm * sms} "
+                   f"slots: {waves} wave(s)")
+        if waves != 1:
+            bad.append(f"{name} takes {waves} waves")
+    if bad:
+        raise RuntimeError(f"substep kernels' resources: {bad}")
+
+
 def kernel_dyn_phase(dev, smi):
     """kernel-dyn (module docstring). Returns the two kernels' rows."""
     import torch
@@ -980,6 +1064,8 @@ def kernel_dyn_phase(dev, smi):
                              plain_c, kin)
         dyn["max_abs_err"] = con["max_abs_err"] = max(dyn["max_abs_err"],
                                                       err)
+        phase_clock_line(phase, label, mt, params, terr, args, kin, Minv,
+                         v_free)
         # the kernels' time as CUDA-graph replays (no host cost); on the
         # flat and rough states also the plain stages' (replays of their
         # captured kernels, and eager), the bound and its share
@@ -1029,6 +1115,7 @@ def kernel_dyn_phase(dev, smi):
     log(phase, f"rough (the engine cell's configuration): substep_dynamics "
                f"{timed['rough']['dyn']:.4f} ms, contact_rows "
                f"{timed['rough']['con']:.4f} ms a launch; {smi}")
+    substep_resources(phase, dev)
     return dyn, con
 
 
@@ -1416,7 +1503,8 @@ def main() -> int:
                f"CUDA {torch.version.cuda} | {torch.cuda.device_count()} card(s)")
 
     phase = "build"
-    kernels = (pgs.KERNEL, pgs.GS_KERNEL, *(k for _, k in substep_kernels()))
+    kernels = (pgs.KERNEL, pgs.GS_KERNEL,
+               *(k for _, k in substep_kernels() + substep_kernels(True)))
     with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc a source
         builds = list(pool.map(lambda k: k.load(), kernels))
     for built in builds:

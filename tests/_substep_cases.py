@@ -1,10 +1,11 @@
 """Inputs of one physics substep in each configuration the substep kernels
 (cat_tpu_torch/ops/substep.py) serve, made from a numpy seed: Solo12 on
 the plane, on a small rough heightfield (two envs at and beyond the
-grid's edge, where the lookup clamps), with CoM offsets (the DR event);
-Go2 on the plane (no self-collision pairs: no frame); the joint-less box
-on its 25 degree slope (the Cholesky M^-1). Imports no JAX, so the card
-tests use it too."""
+grid's edge, where the lookup clamps), with CoM offsets (the DR event),
+in fast motion (large velocity terms in the bias forces C); Go2 on the
+plane (no self-collision pairs: no frame); the joint-less box on its 25
+degree slope (the Cholesky M^-1). Imports no JAX, so the card tests use
+it too."""
 
 from typing import NamedTuple, Optional
 
@@ -17,7 +18,8 @@ from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP, solo12_model
 from cat_tpu_torch.sim import engine, terrain
 from cat_tpu_torch.sim.maths import quat_from_euler_zyx
 
-CASES = ("solo12-plane", "solo12-rough", "solo12-com", "go2", "box")
+CASES = ("solo12-plane", "solo12-rough", "solo12-com", "solo12-fast", "go2",
+         "box")
 ROUGH = dict(rows=3, cols=2, patch_m=4.0, cell=0.1, seed=3)
 
 
@@ -34,8 +36,10 @@ class Case(NamedTuple):
 def make_case(name: str, n: int, seed: int = 0) -> Case:
     """Varied states: the base moved and turned a little (on the
     heightfield anywhere over the grid, 0.25 m above it), joints +-0.3 rad
-    off the default pose, velocities in +-1, PD targets +-0.5 rad about the
-    default pose."""
+    off the default pose, velocities in +-1 (in "solo12-fast" the base's
+    linear velocity in +-2 m/s, its angular velocity in +-5 rad/s and the
+    joints' in +-10 rad/s), PD targets +-0.5 rad about the default
+    pose."""
     rng = np.random.default_rng(seed)
     terr, com = terrain.plane(), None
     if name == "box":
@@ -67,6 +71,10 @@ def make_case(name: str, n: int, seed: int = 0) -> Case:
         if name == "solo12-com":
             com = rng.uniform(-0.05, 0.05, (n, model.nbody, 3))
     qvel = rng.uniform(-1.0, 1.0, (n, model.nv))
+    if name == "solo12-fast":
+        qvel[:, 0:3] = rng.uniform(-2.0, 2.0, (n, 3))
+        qvel[:, 3:6] = rng.uniform(-5.0, 5.0, (n, 3))
+        qvel[:, 6:] = rng.uniform(-10.0, 10.0, (n, model.nj))
     target = model.default_qpos_joints + rng.uniform(-0.5, 0.5, (n, model.nj))
 
     def f32(x):

@@ -499,7 +499,7 @@ N_SUBSTEP = 4096
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["solo12-plane", "solo12-rough",
-                                  "solo12-com", "go2", "box"])
+                                  "solo12-com", "solo12-fast", "go2", "box"])
 def test_substep_kernels_match_plain(cuda, name):
     """Each kernel against its plain version on the same inputs at
     N = 4096 (tests/_substep_cases.py), output by output, within
@@ -541,6 +541,30 @@ def test_substep_kernels_match_plain(cuda, name):
             if outside:
                 bad[out] = (outside, err, rel)
     assert bad == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solo12-rough", "solo12-fast", "box"])
+def test_substep_kernels_are_deterministic(cuda, name):
+    """Two launches of each kernel on the same inputs give the same outputs
+    bit for bit (a fixed summation order, no atomics)."""
+    from _substep_cases import make_case, torch_inputs
+    from cat_tpu_torch.ops import substep
+    from cat_tpu_torch.sim.dynamics import ModelTensors
+
+    case = make_case(name, N_SUBSTEP)
+    mt = ModelTensors.build(case.model, cuda)
+    args = torch_inputs(case, cuda)
+    dyn = [substep.substep_dynamics(mt, case.params, *args) for _ in range(2)]
+    con = [substep.contact_rows(mt, case.terrain, d[3], d[2], d[1])
+           for d in dyn]
+    torch.cuda.synchronize()
+    flat = lambda out: (*out[:3], *out[3])           # noqa: E731
+    for a, b in ((flat(dyn[0]), flat(dyn[1])), (con[0], con[1])):
+        for x, y in zip(a, b):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
