@@ -169,21 +169,77 @@ def stage_disagreement(name, out, plain, keep=None, hfield=False,
 # roundings of a grid coordinate of 100 cells), a gap this near the deepest
 # (m: some five roundings of a candidate's centre 40 m off the origin)
 SEAM_CELLS, GAP_M = 2e-4, 1e-5
+# ambiguous_contacts: a self-collision pair whose capsule axes are parallel
+# to within sin^2 PAIR_SIN2 (but not to the last bit) and which lies more
+# than PAIR_CLEAR_M clear of touching. The closest-point solve
+# (sim/collision.py detect_pair_contacts; csrc/contact_rows.cu does the
+# same) divides by a e - b^2 = a e sin^2, which float32 carries with the
+# roundings of a, e and b (sums of three products) and of its two
+# products: up to some 14 unit roundoffs (2^-24) of a e, 8.3e-7. Below
+# PAIR_SIN2 the denominator may be rounding alone, even of the wrong sign;
+# the first s then goes to 0 or 1 by that sign, and the closest points a
+# side returns follow its summation order, not the pair
+# (tools/pair_probe.py reads them beside float64's). Clear of touching, the
+# pair's rows multiply an impulse of 0 (the solve activates a contact at
+# phi < solver.SolverParams.margin, 0 in every configuration), and its phi
+# moves by at most the angle times a capsule's length (1e-3 x 0.13 m).
+# Pairs parallel to the last bit (sin^2 under 1e-12: a side's two legs at
+# the symmetric default pose) stay compared
+PAIR_SIN2, PAIR_CLEAR_M = 1e-6, 1e-3
+
+
+def float64_tensors(mt):
+    """``mt`` (a ModelTensors) with its floating tables in float64."""
+    import dataclasses
+
+    return dataclasses.replace(mt, **{
+        f.name: getattr(mt, f.name).double()
+        for f in dataclasses.fields(mt)
+        if isinstance(getattr(mt, f.name), torch.Tensor)
+        and getattr(mt, f.name).is_floating_point()})
+
+
+def parallel_pairs(mt, kin):
+    """(N, npair) bool: the self-collision pairs ``ambiguous_contacts``
+    leaves out: axes parallel to within PAIR_SIN2 but not to the last
+    float32 bit (sin^2 over 1e-12), more than PAIR_CLEAR_M clear of
+    touching (sim/collision.py detect_pair_contacts in float64 on the
+    float32 kinematics)."""
+    from cat_tpu_torch.sim import collision
+    from cat_tpu_torch.sim.dynamics import ContactKin
+
+    def axis(bodies, p0, p1):
+        return torch.matmul(kin.R[:, bodies].double(),
+                            (p1 - p0).double()[..., None])[..., 0]
+
+    d1 = axis(mt.pair_body_a, mt.pair_p0_a, mt.pair_p1_a)
+    d2 = axis(mt.pair_body_b, mt.pair_p0_b, mt.pair_p1_b)
+    a, e = (d1 * d1).sum(-1), (d2 * d2).sum(-1)
+    b = (d1 * d2).sum(-1)
+    sin2 = (a * e - b * b) / (a * e)
+    phi = collision.detect_pair_contacts(
+        float64_tensors(mt), ContactKin(kin.R.double(), kin.o.double(),
+                         kin.a_w.double()))[0]
+    return (sin2 > 1e-12) & (sin2 < PAIR_SIN2) & (phi > PAIR_CLEAR_M)
 
 
 def ambiguous_contacts(mt, terrain, kin):
-    """(N, nc) bool: the heightfield candidates whose contact normal a
-    rounding of the candidate's centre can switch, so that the substep's
-    outputs of two summation orders need not agree there: of the probes of
+    """(N, nc) bool: the contacts whose outputs of two summation orders
+    need not agree: the heightfield candidates whose contact normal a
+    rounding of the candidate's centre can switch (of the probes of
     ``terrain.surface_gap`` within GAP_M of the deepest, one lies within
     SEAM_CELLS of a grid line across which the bilinear gradient jumps,
-    or two have different normals (the winner may be either). All False
-    on the plane and for the pairs."""
+    or two have different normals: the winner may be either; none on the
+    plane), and the self-collision pairs clear of touching whose axes are
+    parallel to within PAIR_SIN2 (``parallel_pairs``: float32 does not
+    resolve their closest points)."""
     from cat_tpu_torch.sim import terrain as terrain_mod
 
     m = mt.model
     n = kin.o.shape[0]
     out = torch.zeros(n, m.ncand, dtype=torch.bool, device=kin.o.device)
+    if m.npair:
+        out[:, m.ncand_terrain:] = parallel_pairs(mt, kin)
     if terrain.kind == "plane":
         return out
     body = mt.cand_body
@@ -245,8 +301,9 @@ def compare_stages(mt, terrain, kern, kern_c, plain, plain_c, kin,
     ``dynamics_stage``, ``kern_c`` / ``plain_c`` the (E, W, b, phi, frame)
     of ``contact_rows`` / ``contact_stage``; ``kin`` the kinematics that
     place the contacts. On a heightfield E and the frames are held at
-    ``hfield_tol``, and the contacts whose normal one rounding may switch
-    (``ambiguous_contacts``) are left out; the
+    ``hfield_tol``; the contacts whose outputs one rounding may switch
+    (``ambiguous_contacts``: a heightfield normal, the closest points of a
+    nearly parallel pair clear of touching) are left out; the
     comparison fails (``ok`` false) on an entry outside the tolerance or
     when more than AMBIGUOUS_MAX_SHARE of the contacts are left out."""
     from cat_tpu_torch.ops.substep import CONTACT_OUTPUTS, DYN_OUTPUTS
@@ -274,7 +331,9 @@ def compare_stages(mt, terrain, kern, kern_c, plain, plain_c, kin,
         worst, bad, n_left, left_out.numel(),
         f"max abs/rel err {', '.join(errs)}; {n_left} of "
         f"{left_out.numel()} contacts left out (normal switchable by a "
-        f"rounding; at most {AMBIGUOUS_MAX_SHARE:g} of them); outside "
+        f"rounding, or a pair clear of touching with axes nearly "
+        f"parallel; at most "
+        f"{AMBIGUOUS_MAX_SHARE:g} of them); outside "
         f"tolerance{f' (E, frame at {hfield_tol:g})' if hfield else ''} "
         f"{bad or 'none'}")
 
@@ -331,3 +390,167 @@ def substep_counts(model, n, hfield=False):
         k * (42 + 2 * nv) for k in row_dofs[3 * nct:])
     return {"substep_dynamics": (dyn_bytes, dyn_flops),
             "contact_rows": (con_bytes, n * (geo + rows))}
+
+
+# The post stage (``ops/substep.py`` ``substep_post`` against
+# ``sim/engine.py`` ``post_stage``, and ``post_stage`` against the JAX
+# package's): v = v_free + W lam sums up to 3 x 64 products, which two
+# summation orders round differently, by a few float32 unit roundoffs
+# (2^-24) of the sum of their magnitudes (|v_free| + sum |W lam|, up to
+# ~160 m/s on tests/_substep_cases.py's drops, where the plain float32
+# version alone is 1.7e-5 off a float64 one): qvel within atol 1e-5 plus
+# POST_SUM_UNITS of them, joint_acc = dv / h within that over h plus 1e-5
+# of its largest entry; qpos (q + h v, the quaternion's exponential map)
+# atol 1e-5; forces and their history 1e-5 of the largest entry (the
+# frames' impulses into the world, a few terms a slot); the air times and
+# touchdown equal. A decision (a joint clamped at its limit, a foot in
+# contact) may come out otherwise only where its deciding quantity, read
+# from the reference side (the new joint angle, the foot's force norm),
+# lies within POST_FLIP_SPACINGS float32 spacings of its limit; the
+# entries it decides are left out of their fields' comparison.
+POST_SUM_UNITS = 8
+POST_FLIP_SPACINGS = 4
+
+
+class PostComparison(NamedTuple):
+    """What ``compare_post`` found: the max abs error of each output over
+    the entries compared, the outputs with entries outside the tolerance
+    (name -> how many), each decision that came out otherwise (kind, env,
+    index, margin in float32 spacings), the decisions near their limit,
+    and a line that says so."""
+    errors: dict
+    outside: dict
+    flips: list
+    near: int
+    text: str
+
+    @property
+    def ok(self) -> bool:
+        return not self.outside and all(
+            margin <= POST_FLIP_SPACINGS for *_, margin in self.flips)
+
+
+def _spacings(x, limit):
+    """|x - limit| in float32 spacings of |limit| (float64)."""
+    lim = limit.double().abs()
+    ulp = torch.nextafter(lim.float(), torch.full_like(lim.float(),
+                                                       float("inf"))).double() - lim
+    return (x.double() - limit.double()).abs() / ulp
+
+
+def compare_post(mt, params, s, v_free, W, lam, out, ref) -> PostComparison:
+    """The post stage's outputs ``out`` (a SimState) against the
+    reference side's ``ref`` from the same state ``s`` and operands
+    (v_free, W, lam), at the tolerances above."""
+    m = mt.model
+    h = params.dt
+    n, nj = v_free.shape[0], m.nj
+    nr = m.nreport
+    terms = torch.matmul(W.abs().double(), lam.abs().double()[..., None])[..., 0]
+    v_tol = 1e-5 + POST_SUM_UNITS * 2.0 ** -24 * (v_free.abs().double() + terms)
+    # the deciding quantities on the reference side
+    v_pre = v_free + torch.matmul(W, lam[..., None])[..., 0]
+    qj_new = s.qpos[:, 7:] + h * v_pre[:, 6:]
+    joint_margin = torch.minimum(
+        _spacings(qj_new, mt.joint_lower.expand(n, nj)),
+        _spacings(qj_new, mt.joint_upper.expand(n, nj)))
+    foot = ref.forces.reshape(n, nr, 3)[:, mt.foot_ids].double()
+    norm = torch.sqrt((foot * foot).sum(-1))
+    thr = torch.full_like(norm, params.contact_force_threshold)
+    foot_margin = _spacings(norm, thr)
+    joint_flip = (out.qvel[:, 6:] == 0) != (ref.qvel[:, 6:] == 0)
+    foot_flip = (out.current_air_time == 0) != (ref.current_air_time == 0)
+    flips = [("joint", int(e), int(j), float(joint_margin[e, j]))
+             for e, j in joint_flip.nonzero().tolist()]
+    flips += [("foot", int(e), int(f), float(foot_margin[e, f]))
+              for e, f in foot_flip.nonzero().tolist()]
+    near = int((joint_margin <= POST_FLIP_SPACINGS).sum()
+               + (foot_margin <= POST_FLIP_SPACINGS).sum())
+    keep_j = ~joint_flip
+    keep_v = torch.cat([torch.ones(n, 6, dtype=torch.bool,
+                                   device=keep_j.device), keep_j], dim=1)
+    keep_q = torch.cat([torch.ones(n, 7, dtype=torch.bool,
+                                   device=keep_j.device), keep_j], dim=1)
+    acc_scale = ref.joint_acc.abs().max().item() if nj else 0.0
+    frc_scale = ref.forces.abs().max().item()
+    tol = {"qpos": (1e-5, keep_q), "qvel": (v_tol, keep_v),
+           "joint_acc": (1e-5 * acc_scale + v_tol[:, 6:] / h, keep_j),
+           "forces": (1e-5 * frc_scale, None),
+           "force_hist": (1e-5 * max(frc_scale,
+                                     ref.force_hist.abs().max().item()),
+                          None)}
+    for name in ("current_air_time", "last_air_time", "current_contact_time",
+                 "last_contact_time", "touchdown"):
+        tol[name] = (0.0, ~foot_flip)
+    errors, outside = {}, {}
+    for name, (t, keep) in tol.items():
+        a, b = getattr(out, name), getattr(ref, name)
+        err = (a.double() - b.double()).abs()
+        bad = (err > t) | ~torch.isfinite(a.double())
+        if keep is not None:
+            err, bad = err[keep], bad[keep]
+        errors[name] = err.max().item() if err.numel() else 0.0
+        if int(bad.sum()):
+            outside[name] = int(bad.sum())
+    for name in ("lam", "applied_torque"):
+        if not torch.equal(getattr(out, name), getattr(ref, name)):
+            outside[name] = "differs"
+    margins = sorted(f"{k} {e}/{i} at {mg:.2f}" for k, e, i, mg in flips)
+    return PostComparison(
+        errors, outside, flips, near,
+        "max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errors.items())
+        + f"; {near} decisions within {POST_FLIP_SPACINGS} spacings of "
+        f"their limit, {len(flips)} flipped"
+        + (f" (kind env/index at spacings: {', '.join(margins[:8])}"
+           f"{' ...' if len(margins) > 8 else ''})" if flips else "")
+        + f"; outside tolerance {outside or 'none'}")
+
+
+def post_contrived(mt, params, s, lam):
+    """The post stage's three contrived inputs from a state ``s`` and its
+    impulses ``lam``: "on-limits" (every joint exactly on its lower limit
+    in even envs and its upper limit in odd ones, the impulses kept),
+    "at-threshold" (each foot's force from the normal impulse of its first
+    terrain candidate alone, its norm spread evenly over the contact
+    threshold +- 1e-3 N across envs and feet; every other impulse 0),
+    "zero-lam" (every impulse 0). Returns {label: (state, lam)}."""
+    m = mt.model
+    n = lam.shape[0]
+    odd = (torch.arange(n, device=lam.device) % 2 == 1)[:, None]
+    qpos = s.qpos.clone()
+    qpos[:, 7:] = torch.where(odd, mt.joint_upper, mt.joint_lower)
+    feet = [int(f) for f in m.foot_report_ids]
+    cand = [int(list(m.cand_report).index(f)) for f in feet]
+    delta = torch.linspace(-1e-3, 1e-3, n * len(feet), device=lam.device,
+                           dtype=torch.float64).reshape(len(feet), n).T
+    at = torch.zeros_like(lam)
+    for k, c in enumerate(cand):
+        at[:, 3 * c + 2] = ((params.contact_force_threshold + delta[:, k])
+                            * params.dt).float()
+    return {"on-limits": (s._replace(qpos=qpos), lam),
+            "at-threshold": (s, at), "zero-lam": (s, torch.zeros_like(lam))}
+
+
+def post_counts(model, n, frames, lam):
+    """(bytes, f32 operations) the post stage needs for n envs of
+    ``model`` as ``csrc/substep_post.cu`` does it: each input read once and
+    each output written once (touchdown a byte, the packed tables); W's
+    columns and the frames (``frames``: the terrain or the pairs give
+    them) of the impulses these inputs hold, nonzero in ``lam`` (N, 3nc).
+    Operations: 2 nv a column of W
+    read, a frame's 15, the forces' divisions and report sums, and per env
+    the integration (~120) and a foot's norm and times (~12)."""
+    nv, nj, nq, nc = model.nv, model.nj, model.nq, model.ncand
+    nct, npair, nr = model.ncand_terrain, model.npair, model.nreport
+    nf = len(model.foot_report_ids)
+    cols = float((lam != 0).sum())
+    active = float((lam.reshape(-1, nc, 3) != 0).any(-1).sum())
+    reads = 3 * nc + nq + 2 * nv + 9 * nr + 4 * nf
+    writes = nq + nv + nj + 12 * nr + 4 * nf
+    tables = 4 * (2 * nj + nf + nr + 1 + nct + 2 * npair)
+    byts = (4 * (cols * nv + (9 * active if frames else 0)
+                 + n * (reads + writes)) + 2 * n * nf + tables)
+    flops = (2 * nv * cols + (15 * active if frames else 0)
+             + n * (3 * nc + 3 * (nct + 2 * npair) + nv + 120 + 4 * nj
+                    + 12 * nf))
+    return byts, flops

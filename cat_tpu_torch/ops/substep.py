@@ -1,24 +1,29 @@
-"""The physics substep up to the contact solve as two CUDA kernels, their
-wrappers, and the dispatch to their plain PyTorch versions.
+"""The physics substep around the contact solve as three CUDA kernels,
+their wrappers, the dispatch to their plain PyTorch versions, and the one
+list of the port's kernels (``KERNELS``).
 
   * ``substep_dynamics`` (``csrc/substep_dyn.cu``): PD torque, forward
     kinematics, M, C, M^-1 and v_free, one warp an env;
   * ``contact_rows`` (``csrc/contact_rows.cu``): contact candidates and
     self-collision pairs, phi, the frames and the rows E, W = M^-1 E^T,
-    b = E v_free, in the layout ``ops/pgs.py``'s kernels read.
+    b = E v_free, in the layout ``ops/pgs.py``'s kernels read;
+  * ``substep_post`` (``csrc/substep_post.cu``), after the solve: v_free +
+    W lam, integration with the joint-limit clamp, the contact forces a
+    report slot, their history and the feet's air times.
 
-Neither replaces a Pallas kernel: together they are the counterpart of the
+None replaces a Pallas kernel: together they are the counterpart of the
 JAX package's lanes substep (cat_tpu/sim/engine_lanes.py:38
-``_substep_pre_lanes`` over sim/dynamics_lanes.py), which XLA fused into a
-few full-width passes on the TPU. Their plain versions are
-``sim/engine.py``'s ``dynamics_stage`` and ``contact_stage``.
+``_substep_pre_lanes`` over sim/dynamics_lanes.py, and :131
+``_substep_post_lanes``), which XLA fused into a few full-width passes on
+the TPU. Their plain versions are ``sim/engine.py``'s ``dynamics_stage``,
+``contact_stage`` and ``post_stage``.
 
-Both wrappers dispatch on the tensors' device: on a CUDA tensor they launch
+The wrappers dispatch on the tensors' device: on a CUDA tensor they launch
 the kernel (built by plain nvcc, bound with ctypes) or raise; on a CPU
 tensor they run the plain version. There is no fallback from the card to
-the plain version. The model's tables (``model_tables``) go to the card
-once a ``ModelTensors`` and wrapper, the heightfield's packed corners once
-a terrain.
+the plain version. The model's tables (``model_tables``, ``pack_post``)
+go to the card once a ``ModelTensors`` and wrapper, the heightfield's
+packed corners once a terrain.
 
 ``SubstepDynKernel(clocks=True)`` / ``ContactRowsKernel(clocks=True)`` bind
 each kernel's phase-clock build (``-DSUBSTEP_PHASE_CLOCKS``, a library of
@@ -39,14 +44,16 @@ import torch
 from cat_tpu_torch.sim.dynamics import ContactKin
 from cat_tpu_torch.sim.terrain import _packed_corners
 
-from . import build
+from . import build, pgs
 from .pgs import _device_and_stream
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 DYN_SOURCE = CSRC / "substep_dyn.cu"
 CONTACT_SOURCE = CSRC / "contact_rows.cu"
+POST_SOURCE = CSRC / "substep_post.cu"
 MAX_DOFS = 32            # a lane of the warp owns each dof
 MAX_CONTACTS = 64
+MAX_FEET = 32            # a lane owns each foot
 # the phase-clock build of a kernel (``_SubstepKernel(clocks=True)``): a
 # library of its own; the production library is never built with it
 PHASE_CLOCK_FLAGS = ("-DSUBSTEP_PHASE_CLOCKS",)
@@ -55,6 +62,11 @@ ENVS_PER_BLOCK = 4       # csrc/substep_model.cuh kWarps: one warp an env
 # the two stages' outputs, in order (``substep_dynamics``'s kin flattened)
 DYN_OUTPUTS = ("tau_j", "v_free", "Minv", "R", "o", "a_w")
 CONTACT_OUTPUTS = ("E", "W", "b", "phi", "frame")
+# the post stage's outputs (the SimState fields it computes; lam and
+# applied_torque pass through)
+POST_OUTPUTS = ("qpos", "qvel", "joint_acc", "forces", "force_hist",
+                "current_air_time", "last_air_time", "current_contact_time",
+                "last_contact_time", "touchdown")
 
 
 class ModelTables(NamedTuple):
@@ -100,6 +112,40 @@ def model_tables(mt, device) -> ModelTables:
                        bool(mt.model.uniform_3dof_branches()))
 
 
+class PostTables(NamedTuple):
+    """The post stage's tables as its kernel reads them
+    (``csrc/substep_post.cu``)."""
+    floats: torch.Tensor     # float32: joint_lower, joint_upper
+    ints: torch.Tensor       # int32: foot slots, slot starts, entries
+
+
+def report_entries(model):
+    """(start, entry) of the report table: slot r's entries are
+    ``entry[start[r]:start[r + 1]]``, contact c for its +f and -1 - c for
+    the -f a self-collision pair c reports to its body B's slot, in the
+    order of the plain version's columns (terrain candidates, the pairs'
+    A, the pairs' B; cat_tpu/sim/engine_lanes.py:164-174)."""
+    nct, nc = model.ncand_terrain, model.ncand
+    slot = np.concatenate([model.cand_report, model.pair_report_a,
+                           model.pair_report_b]).astype(np.int64)
+    signed = np.concatenate([np.arange(nc), -1 - np.arange(nct, nc)])
+    order = np.argsort(slot, kind="stable")
+    start = np.concatenate([[0], np.cumsum(np.bincount(
+        slot, minlength=model.nreport))])
+    return start, signed[order]
+
+
+def pack_post(model):
+    """(floats, ints) of the post stage's tables as numpy arrays, in the
+    order of ``csrc/substep_post.cu``."""
+    start, entry = report_entries(model)
+    floats = np.concatenate([model.joint_limit_lower,
+                             model.joint_limit_upper]).astype(np.float32)
+    ints = np.concatenate([np.asarray(model.foot_report_ids, np.int64),
+                           start, entry]).astype(np.int32)
+    return floats, ints
+
+
 def _check(device, **tensors):
     """float32 contiguous tensors of the given shapes, on ``device``, a
     CUDA device: name=(tensor, shape)."""
@@ -123,6 +169,13 @@ def _check_model(model):
                          "lane of the warp owns each dof)")
     if not 0 < model.ncand <= MAX_CONTACTS:
         raise ValueError(f"{model.ncand} contacts: need 1..{MAX_CONTACTS}")
+
+
+def _check_post_model(model):
+    _check_model(model)
+    if not len(model.foot_report_ids) <= MAX_FEET:
+        raise ValueError(f"{len(model.foot_report_ids)} feet: need at most "
+                         f"{MAX_FEET} (a lane owns each foot)")
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -153,12 +206,16 @@ class _SubstepKernel:
         self._devices = set()
         self._tables = {}     # (id(mt), device) -> (mt, ModelTables)
 
-    def tables(self, mt, device) -> ModelTables:
+    def tables(self, mt, device):
         key = (id(mt), str(device))
         hit = self._tables.get(key)
         if hit is None or hit[0] is not mt:
-            hit = self._tables[key] = (mt, model_tables(mt, device))
+            hit = self._tables[key] = (mt, self.make_tables(mt, device))
         return hit[1]
+
+    @staticmethod
+    def make_tables(mt, device):
+        return model_tables(mt, device)
 
     def _fn(self, name):
         return getattr(self._lib, f"{self.prefix}_{name}")
@@ -325,8 +382,81 @@ class ContactRowsKernel(_SubstepKernel):
         return E, W, b, phi, frame
 
 
+class SubstepPostKernel(_SubstepKernel):
+    """``csrc/substep_post.cu``: the post stage."""
+
+    prefix = "substep_post"
+    source = POST_SOURCE
+    # qpos qvel v_free W lam frame force_hist, the four air fields,
+    # touchdown, ftab itab, out qpos qvel joint_acc forces force_hist, the
+    # four air fields, touchdown; n nv nct npair nreport nfeet, h threshold,
+    # stream
+    launch_argtypes = [_P] * 24 + [_I] * 6 + [_F, _F, _P]
+    bytes_argtypes = [_I, _I, _I]
+
+    @staticmethod
+    def make_tables(mt, device) -> PostTables:
+        return PostTables(*(torch.as_tensor(t, device=device)
+                            for t in pack_post(mt.model)))
+
+    def __call__(self, mt, params, s, tau_j, v_free, W, lam, frame):
+        m = mt.model
+        n = v_free.shape[0]
+        nf = len(m.foot_report_ids)
+        _check_post_model(m)
+        # the state as its holder keeps it (the bench's, the env's): made
+        # contiguous here, a no-op where it is
+        s = type(s)(*(t.contiguous() for t in s))
+        v_free, W, lam = v_free.contiguous(), W.contiguous(), lam.contiguous()
+        nc, nr = m.ncand, m.nreport
+        checks = dict(qpos=(s.qpos, (n, m.nq)), qvel=(s.qvel, (n, m.nv)),
+                      tau_j=(tau_j, (n, m.nj)), v_free=(v_free, (n, m.nv)),
+                      W=(W, (n, m.nv, 3 * nc)), lam=(lam, (n, 3 * nc)),
+                      force_hist=(s.force_hist, (n, 9 * nr)))
+        for name in POST_OUTPUTS[5:9]:
+            checks[name] = (getattr(s, name), (n, nf))
+        if frame is not None:
+            frame = frame.contiguous()
+            checks["frame"] = (frame, (n, nc, 3, 3))
+        if s.touchdown.dtype != torch.bool:
+            raise TypeError(f"touchdown is {s.touchdown.dtype}, not bool")
+        if tuple(s.touchdown.shape) != (n, nf):
+            raise ValueError(f"touchdown has shape {tuple(s.touchdown.shape)},"
+                             f" expected {(n, nf)}")
+        _check(v_free.device, **checks)
+        if s.touchdown.device != v_free.device:
+            raise ValueError(f"touchdown is on {s.touchdown.device}, not "
+                             f"{v_free.device}")
+        dev = v_free.device
+        tab = self.tables(mt, dev)
+
+        def out(*shape, dtype=torch.float32):
+            return torch.empty((n,) + shape, dtype=dtype, device=dev)
+
+        res = dict(qpos=out(m.nq), qvel=out(m.nv), joint_acc=out(m.nj),
+                   forces=out(3 * nr), force_hist=out(9 * nr),
+                   **{name: out(nf) for name in POST_OUTPUTS[5:9]},
+                   touchdown=out(nf, dtype=torch.bool))
+        ins = [s.qpos, s.qvel, v_free, W, lam, frame, s.force_hist,
+               *(getattr(s, name) for name in POST_OUTPUTS[5:9]),
+               s.touchdown, tab.floats, tab.ints]
+        self._launch(v_free, tuple(
+            None if t is None or t.numel() == 0 else t.data_ptr()
+            for t in ins + [res[name] for name in POST_OUTPUTS]) + (
+            n, m.nv, m.ncand_terrain, m.npair, nr, nf, params.dt,
+            params.contact_force_threshold))
+        return type(s)(lam=lam, applied_torque=tau_j, **res)
+
+
 DYN_KERNEL = SubstepDynKernel()
 CONTACT_KERNEL = ContactRowsKernel()
+POST_KERNEL = SubstepPostKernel()
+# the one list of the port's kernels: (name, wrapper), the substep's three
+# in the order a substep launches them
+SUBSTEP_KERNELS = (("substep_dynamics", DYN_KERNEL),
+                   ("contact_rows", CONTACT_KERNEL),
+                   ("substep_post", POST_KERNEL))
+KERNELS = (("pgs_bj", pgs.KERNEL), ("pgs_gs", pgs.GS_KERNEL)) + SUBSTEP_KERNELS
 
 
 def substep_dynamics(mt, params, qpos, qvel, target_q, com_offset=None):
@@ -350,3 +480,13 @@ def contact_rows(mt, terrain, kin, Minv, v_free):
 
         return contact_stage(mt, terrain, kin, Minv, v_free)
     return CONTACT_KERNEL(mt, terrain, kin, Minv, v_free)
+
+
+def substep_post(mt, params, s, tau_j, v_free, W, lam, frame):
+    """The SimState after one substep's impulses lam: the CUDA kernel for
+    CUDA tensors, ``sim.engine.post_stage`` for CPU tensors."""
+    if v_free.device.type == "cpu":
+        from cat_tpu_torch.sim.engine import post_stage
+
+        return post_stage(mt, params, s, tau_j, v_free, W, lam, frame)
+    return POST_KERNEL(mt, params, s, tau_j, v_free, W, lam, frame)

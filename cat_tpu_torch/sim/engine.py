@@ -21,13 +21,14 @@ the same kernels in the same order as the loop (``Engine._eager``), so
 its result equals the loop's bit for bit; on CPU tensors ``__call__`` is
 the loop.
 
-Steps 1-3 up to the solve run in one of two layouts, as in the reference
+The substep runs in one of two layouts, as in the reference
 (``make_batched_step(layout=...)``): "lanes" (and "auto"), the production
-path, runs them as two kernels a substep (``ops/substep.py``:
-``substep_dynamics``, then ``contact_rows``), each env's intermediates
-kept in its warp's registers and shared memory; "vmap", the reference
-layout, runs the plain versions ``dynamics_stage`` and ``contact_stage``
-op by op over the batch. On CPU tensors both run the plain versions.
+path, runs it as four kernels (``ops/substep.py``: ``substep_dynamics``,
+then ``contact_rows``, the contact solve, then ``substep_post`` for steps
+4-5), each env's intermediates kept in its warp's registers and shared
+memory; "vmap", the reference layout, runs the plain versions
+``dynamics_stage``, ``contact_stage`` and ``post_stage`` op by op over the
+batch around the same solve. On CPU tensors both run the plain versions.
 """
 
 from __future__ import annotations
@@ -151,9 +152,11 @@ def substep_pre(mt: dyn.ModelTensors, params: EngineParams, terrain: Terrain,
     return (tau_j, v_free) + contact_stage(mt, terrain, kin, Minv, v_free)
 
 
-def substep_post(mt: dyn.ModelTensors, params: EngineParams, s: SimState,
-                 tau_j, v_free, W, lam, frame) -> SimState:
-    """Impulse application + integration + sensors."""
+def post_stage(mt: dyn.ModelTensors, params: EngineParams, s: SimState,
+               tau_j, v_free, W, lam, frame) -> SimState:
+    """Impulse application + integration + sensors: the plain version of
+    ``ops/substep.py``'s post kernel (cat_tpu/sim/engine_lanes.py:131
+    ``_substep_post_lanes``)."""
     h = params.dt
     m = mt.model
     n = lam.shape[0]
@@ -196,6 +199,14 @@ def substep_post(mt: dyn.ModelTensors, params: EngineParams, s: SimState,
     )
 
 
+def substep_post(mt: dyn.ModelTensors, params: EngineParams, s: SimState,
+                 tau_j, v_free, W, lam, frame) -> SimState:
+    """Impulse application + integration + sensors on the operands'
+    device: the post kernel on a CUDA device, ``post_stage`` on the CPU
+    (``ops/substep.py`` ``substep_post``)."""
+    return substep.substep_post(mt, params, s, tau_j, v_free, W, lam, frame)
+
+
 def contact_solver(model: RobotModel, sp: solver.SolverParams):
     """The contact solve ``sp.structure`` asks for and its keyword
     arguments: "gs" -> ``pgs_gs`` (``omega`` and ``bj_blocks`` ignored, as
@@ -215,8 +226,7 @@ def contact_solver(model: RobotModel, sp: solver.SolverParams):
 
 # the kernels whose launches a replay of the control step adds to their
 # counts
-_KERNELS = (pgs.KERNEL, pgs.GS_KERNEL, substep.DYN_KERNEL,
-            substep.CONTACT_KERNEL)
+_KERNELS = tuple(kernel for _, kernel in substep.KERNELS)
 
 
 class _ControlStepGraph:
@@ -265,7 +275,7 @@ class Engine(NamedTuple):
     parameters, its terrain, the contact solve and its arguments, and the
     CUDA graphs of its control step (``graphs``, filled by ``__call__`` on
     a CUDA device; a copy made with ``_replace`` or rebuilt from the fields
-    shares them), and the layout of the steps up to the solve (module
+    shares them), and the layout of the substep around the solve (module
     docstring)."""
     mt: dyn.ModelTensors
     params: EngineParams
@@ -299,8 +309,8 @@ class Engine(NamedTuple):
         (tau_j, v_free, W, frame), operands = self.contact_problem(
             s, target_q, mu, com_offset)
         lam = self.solve(*operands, **self.pgs_kwargs)
-        return substep_post(self.mt, self.params, s, tau_j, v_free, W, lam,
-                            frame)
+        post = post_stage if self.layout == "vmap" else substep_post
+        return post(self.mt, self.params, s, tau_j, v_free, W, lam, frame)
 
     def __call__(self, s: SimState, target_q, mu, com_offset=None) -> SimState:
         """One 50 Hz control step = ``decimation`` substeps; target_q
@@ -369,9 +379,9 @@ def make_batched_step(model: RobotModel, params: EngineParams,
     """The control step of ``model`` on ``device`` (an Engine), in the
     reference's positional order (cat_tpu/sim/engine.py:296). ``num_envs``
     is ignored, as the reference's batched step ignores it off the TPU.
-    ``layout`` as in the reference: "lanes" runs the steps up to the solve
-    as the two kernels of ``ops/substep.py`` on a CUDA device, "vmap" as
-    the plain versions op by op, "auto" picks "lanes" (the reference picks
+    ``layout`` as in the reference: "lanes" runs the substep around the
+    solve as the three kernels of ``ops/substep.py`` on a CUDA device,
+    "vmap" as the plain versions op by op, "auto" picks "lanes" (the reference picks
     lanes on its accelerator); on the CPU all three compute the same."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")

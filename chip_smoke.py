@@ -5,10 +5,11 @@
 
 Phases, each printed with its elapsed seconds:
   device: the card, its power limit, the torch and CUDA versions;
-  build: the four kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu
-     and contact_rows.cu, and the phase-clock builds of the last two
-     (-DSUBSTEP_PHASE_CLOCKS, libraries of their own), one plain nvcc
-     each, started together, with ptxas's registers, stack and spills;
+  build: the five kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu,
+     contact_rows.cu and substep_post.cu, and the phase-clock builds of
+     substep_dyn.cu and contact_rows.cu (-DSUBSTEP_PHASE_CLOCKS, libraries
+     of their own), one plain nvcc each, started together, with ptxas's
+     registers, stack and spills;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
      N = 4096, on contact problems captured from the port's flat Solo12 env
      (36 contacts) and from its Go2 env (28 contacts), on seeded random
@@ -38,7 +39,20 @@ Phases, each printed with its elapsed seconds:
      CUDA-graph replays, the plain stages' replayed and eager, the bound
      (``measure.substep_counts``) and its share; last each kernel's ptxas
      registers and spills, and at Solo12's shape its shared memory a
-     block and blocks an SM: 4096 envs must run in one wave, unspilled;
+     block and blocks an SM: 4096 envs must run in one wave, unspilled
+     (the post kernel's too);
+  kernel-post: the post stage's kernel (ops/substep.py substep_post)
+     against its plain version (sim/engine.py post_stage) on the same
+     states, each with its own contact problem solved by its engine's
+     solve, and on the three contrived inputs of ``measure.post_contrived``
+     made from it (every joint exactly on a limit; each foot's force
+     within 1e-3 N of the contact threshold; no impulse): every output
+     within ``measure.compare_post``, the largest error of each printed,
+     and each decision (a joint clamped, a foot in contact) that came out
+     otherwise with its margin in float32 spacings (at most 4); on each
+     state the kernel's time as CUDA-graph replays, the plain stage's
+     replayed and eager, and the bound of that state's impulses
+     (``measure.post_counts``) and its share;
   graph: the control step's CUDA graph (``Engine.__call__`` on the card)
      against the eager substep loop (``Engine._eager``) in each engine
      configuration the port runs: the flat env's block-Jacobi engine at
@@ -50,9 +64,10 @@ Phases, each printed with its elapsed seconds:
      states keep their values through 5 more replays; the contact kernel
      and both substep kernels launch 4 times every control step; the
      eager and graphed ms a control step; then the engine's "lanes" route
-     against its "vmap" route from the first state: a substep's outputs
-     within the stage tolerances, one control step within qpos atol 2e-3,
-     qvel atol 2e-2;
+     (the substep's three kernels) against its "vmap" route (the plain
+     stages and post_stage) from the first state: a substep's outputs
+     within the stage tolerances and ``measure.compare_post``, one control
+     step within qpos atol 2e-3, qvel atol 2e-2;
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
      2 PPO iterations, a checkpoint each; pgs_bj must launch 2 x 24 x 4
      times;
@@ -121,11 +136,11 @@ Phases, each printed with its elapsed seconds:
      timed iteration of each PPO cell (flat and rough) and 1 window of 20
      raw-engine control steps, no trace: every cell must be correct (its
      checks against the plain learner and physics references and of the
-     substep kernels against the plain stages included), and each of its
-     kernels (the contact solve, substep_dynamics, contact_rows) must
-     launch once a substep of its warm-up and timed window as the bench
-     counts them: (3 + 1) x 96 in each PPO cell, (50 + 20) x 4 in the
-     engine cell;
+     substep kernels against the plain stages included), and each of the
+     kernels it counts (the contact solve, substep_dynamics, contact_rows)
+     must launch once a substep of its warm-up and timed window: (3 + 1) x
+     96 in each PPO cell, (50 + 20) x 4 in the engine cell; substep_post,
+     which the bench does not count, at least as often;
   probe: ``cat_tpu_torch.tools.pgs_structure_probe`` at 256 envs: the flat
      env's contact problems at 5 points of a 50-control-step rollout (200
      launches), each of the 26 (blocks, omega, sweeps) structures solved
@@ -147,15 +162,16 @@ Phases, each printed with its elapsed seconds:
      ``make_batched_init(model, n)``, the reference's two-argument call,
      lands on the card as ``init_state`` broadcast.
 Training runs log to a temporary directory, never inside the repo.
-Every launch count (the four kernels') is set to 0 just before its path
-and read just after (in the train-dist processes, before each iteration);
-the substep kernels must launch once a substep wherever the contact solve
-does (in the bench's windows as it counts them, and at least as often in
-all: its checks after each window add launches; in the probe the
-rollout's and one a capture). The
+Every launch count (the five kernels', ``substep.KERNELS``) is set to 0
+just before its path and read just after (in the train-dist processes,
+before each iteration); the substep's three kernels must launch once a
+substep wherever the contact solve does (in the bench's windows as it
+counts them, and at least as often in all: its checks after each window
+add launches; in the probe the rollout's and, but for the post kernel,
+one a capture). The
 JSON line's launches are their sums over all paths and processes (the
 drill's trainers, which the drill itself checks, excepted; the
-comparisons of kernel-dyn and graph not counted). The last lines are
+comparisons of kernel-dyn, kernel-post and graph not counted). The last lines are
 a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
@@ -439,14 +455,15 @@ CLOCK_KERNELS: tuple = ()
 
 
 def substep_kernels(clocks=False):
-    """(row name, wrapper) of the substep's two kernels; with ``clocks``,
-    wrappers of their phase-clock builds (never on a path)."""
+    """(row name, wrapper) of the substep's three kernels
+    (``substep.SUBSTEP_KERNELS``); with ``clocks``, wrappers of the
+    phase-clock builds of the first two (never on a path; the post kernel
+    has none)."""
     global CLOCK_KERNELS
     from cat_tpu_torch.ops import substep
 
     if not clocks:
-        return (("substep_dynamics", substep.DYN_KERNEL),
-                ("contact_rows", substep.CONTACT_KERNEL))
+        return substep.SUBSTEP_KERNELS
     if not CLOCK_KERNELS:
         CLOCK_KERNELS = (
             ("substep_dynamics", substep.SubstepDynKernel(clocks=True)),
@@ -456,10 +473,9 @@ def substep_kernels(clocks=False):
 
 def zero_counts():
     """Sets every kernel's launch count to 0, just before a path."""
-    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.ops import substep
 
-    for kernel in (pgs.KERNEL, pgs.GS_KERNEL,
-                   *(k for _, k in substep_kernels())):
+    for _, kernel in substep.KERNELS:
         kernel.launches = 0
 
 
@@ -484,19 +500,23 @@ def check_launches(phase, kernel, expected, substeps="same") -> int:
     return launches
 
 
+def add_launches(phase, name, kernel, expected, at_least=False):
+    """Adds ``kernel``'s launches since the counts were set to 0 to its row
+    ``name``; fails unless they are ``expected`` (or, with ``at_least``, no
+    fewer)."""
+    n = kernel.launches
+    log(phase, f"{name} launches {n} (expected "
+               f"{'at least ' if at_least else ''}{expected})")
+    if n < expected if at_least else n != expected:
+        raise RuntimeError(f"the main path did not run through {name}")
+    if name in SUBSTEP_ROWS:
+        SUBSTEP_ROWS[name]["launches"] += n
+
+
 def add_substep_launches(phase, expected, at_least=False):
-    """Adds the substep kernels' launches since the counts were set to 0
-    to their rows; fails unless each is ``expected`` (or, with
-    ``at_least``, no fewer)."""
-    got = {name: k.launches for name, k in substep_kernels()}
-    log(phase, f"substep kernel launches {got} (expected "
-               f"{'at least ' if at_least else ''}{expected} each)")
-    if any(n < expected if at_least else n != expected for n in got.values()):
-        raise RuntimeError("the main path did not run through the substep "
-                           "kernels")
-    for name, n in got.items():
-        if name in SUBSTEP_ROWS:
-            SUBSTEP_ROWS[name]["launches"] += n
+    """``add_launches`` of each substep kernel, all ``expected``."""
+    for name, kernel in substep_kernels():
+        add_launches(phase, name, kernel, expected, at_least)
 
 
 def check_finite(phase, history):
@@ -804,8 +824,9 @@ def train_dist_phase(logdir, flat_dir) -> int:
         raise RuntimeError("the 2-process run disagrees across ranks, "
                            "missed the kernel or did not resume")
     log(phase, f"substep kernel launches an iteration and rank {substeps}")
+    kinds = len(substep_kernels())
     for k, (name, _) in enumerate(substep_kernels()):
-        SUBSTEP_ROWS[name]["launches"] += sum(substeps[k::2])
+        SUBSTEP_ROWS[name]["launches"] += sum(substeps[k::kinds])
     return sum(launches)
 
 
@@ -979,6 +1000,14 @@ def phase_clock_line(phase, label, mt, params, terr, args, kin, Minv,
                    + f"; total {total:.0f}")
 
 
+def substep_shapes(m):
+    """Each substep kernel's shape arguments (``block_bytes``,
+    ``blocks_per_sm``) for model m."""
+    return {"substep_dynamics": (m.nbody, m.nv),
+            "contact_rows": (m.nbody, m.nv, m.ncand),
+            "substep_post": (m.nv, m.ncand, m.nreport)}
+
+
 def substep_resources(phase, dev):
     """kernel-dyn: each substep kernel's ptxas resources (every entry
     function of its library) and, at Solo12's shape, its shared memory a
@@ -990,10 +1019,8 @@ def substep_resources(phase, dev):
     from cat_tpu_torch.models.solo12 import solo12_model
     from cat_tpu_torch.ops import build, substep
 
-    m = solo12_model()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    shapes = {"substep_dynamics": (m.nbody, m.nv),
-              "contact_rows": (m.nbody, m.nv, m.ncand)}
+    shapes = substep_shapes(solo12_model())
     bad = []
     for name, kernel in substep_kernels():
         for fn, r in build.ptxas_resources(kernel.built.log).items():
@@ -1087,20 +1114,84 @@ def kernel_dyn_phase(dev, smi):
         t = timed["flat"]           # the flat cell's configuration
         row.update(ms=t[key], plain_ms=t[key + "_plain"],
                    bound_ms=t[key + "_bound"], bound_by=t[key + "_by"])
-    m = solo12_model()
-    smem = {"substep_dynamics": substep.DYN_KERNEL.block_bytes(m.nbody, m.nv),
-            "contact_rows": substep.CONTACT_KERNEL.block_bytes(
-                m.nbody, m.nv, m.ncand)}
-    for name, kernel in substep_kernels():
+    shapes = substep_shapes(solo12_model())
+    for name, kernel in substep_kernels()[:2]:
         log(phase, f"{name}: {kernel.built.path.name}; shared memory a "
-                   f"block of 4 envs at Solo12's shape {smem[name]} B; "
-                   f"launches in this phase {kernel.launches} (not "
-                   f"counted: a comparison)")
+                   f"block of 4 envs at Solo12's shape "
+                   f"{kernel.block_bytes(*shapes[name])} B; launches in "
+                   f"this phase {kernel.launches} (not counted: a "
+                   f"comparison)")
     log(phase, f"rough (the engine cell's configuration): substep_dynamics "
                f"{timed['rough']['dyn']:.4f} ms, contact_rows "
                f"{timed['rough']['con']:.4f} ms a launch; {smi}")
     substep_resources(phase, dev)
     return dyn, con
+
+
+def kernel_post_phase(dev, smi):
+    """kernel-post (module docstring). Returns the post kernel's row."""
+    import torch
+
+    from cat_tpu_torch import measure
+    from cat_tpu_torch.ops import substep
+    from cat_tpu_torch.sim import engine
+
+    phase = "kernel-post"
+    row = dict(name="substep_post", route="cuda", launches=0,
+               max_abs_err=0.0,
+               source="cat_tpu_torch/ops/csrc/substep_post.cu",
+               replaces="cat_tpu/sim/engine_lanes.py:131")
+    for label, eng, s, target, com in substep_states(dev):
+        mt, params = eng.mt, eng.params
+        mu = torch.ones(N_ENVS, device=dev)
+        (tau_j, v_free, W, frame), ops = eng.contact_problem(s, target, mu,
+                                                             com)
+        lam = eng.solve(*ops, **eng.pgs_kwargs)
+        cases = {"solved": (s, lam)}
+        cases.update(measure.post_contrived(mt, params, s, lam))
+        for case, (si, li) in cases.items():
+            out = substep.POST_KERNEL(mt, params, si, tau_j, v_free, W, li,
+                                      frame)
+            ref = engine.post_stage(mt, params, si, tau_j, v_free, W, li,
+                                    frame)
+            torch.cuda.synchronize()
+            cmp = measure.compare_post(mt, params, si, v_free, W, li, out,
+                                       ref)
+            active = (li.reshape(N_ENVS, -1, 3) != 0).any(-1).sum(1).float()
+            log(phase, f"{label} {case} ({active.mean():.2f} contacts of "
+                       f"{mt.model.ncand} with an impulse an env): "
+                       f"{cmp.text}")
+            if not cmp.ok or len(cmp.flips) > max(8, cmp.near):
+                raise RuntimeError(f"the post kernel disagrees with "
+                                   f"post_stage ({label}, {case})")
+            row["max_abs_err"] = max(
+                row["max_abs_err"], *(cmp.errors[k] for k in (
+                    "qpos", "qvel", "forces")))
+        # its time as CUDA-graph replays (no host cost), the plain stage's
+        # replayed and eager, the bound of this state's impulses
+        ms = measure.graph_ms(lambda: substep.POST_KERNEL(
+            mt, params, s, tau_j, v_free, W, lam, frame), 50)
+        plain_ms = measure.graph_ms(lambda: engine.post_stage(
+            mt, params, s, tau_j, v_free, W, lam, frame), 5)
+        eager_ms = measure.cuda_ms(lambda: engine.post_stage(
+            mt, params, s, tau_j, v_free, W, lam, frame), 5)
+        byts, flops = measure.post_counts(mt.model, N_ENVS, frame is not None,
+                                          lam)
+        full, _ = measure.post_counts(mt.model, N_ENVS, frame is not None,
+                                      torch.ones_like(lam))
+        bound, by = measure.bound(byts, flops)
+        log(phase, f"{label}: kernel {ms:.4f} ms (graph replays); plain "
+                   f"{plain_ms:.3f} ms replayed, {eager_ms:.3f} ms eager; "
+                   f"bound {bound:.4f} ms by {by} ({byts / 1e6:.2f} MB, "
+                   f"{flops / 1e9:.4f} GFLOP; every column of W "
+                   f"{full / 1e6:.2f} MB): {bound / ms * 100:.1f}% of it; "
+                   f"N = {N_ENVS}")
+        if label == "flat":         # the flat cell's configuration
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    log(phase, f"substep_post: {substep.POST_KERNEL.built.path.name}; "
+               f"launches in this phase {substep.POST_KERNEL.launches} (not "
+               f"counted: a comparison); {smi}")
+    return row
 
 
 def graph_configs(dev):
@@ -1167,13 +1258,15 @@ def graph_configs(dev):
 
 
 def layouts_agree(phase, eng, s, target, mu, com):
-    """The engine's "lanes" route (the two substep kernels) against its
+    """The engine's "lanes" route (the substep's three kernels) against its
     "vmap" route (the plain stages) from state s: the contact problem of a
-    substep within the stage tolerances, and one control step within the
-    chained-step tolerances of tests/test_torch_engine.py (qpos atol 2e-3,
-    qvel atol 2e-2)."""
+    substep within the stage tolerances, its post stage (the plain
+    problem, solved) within ``measure.compare_post``, and one control step
+    within the chained-step tolerances of tests/test_torch_engine.py (qpos
+    atol 2e-3, qvel atol 2e-2)."""
     import torch
 
+    from cat_tpu_torch import measure
     from cat_tpu_torch.ops import substep
     from cat_tpu_torch.sim import engine
 
@@ -1189,6 +1282,17 @@ def layouts_agree(phase, eng, s, target, mu, com):
     torch.cuda.synchronize()
     compare_stages(phase, "lanes vs vmap, a substep", eng.mt, eng.terrain,
                    kern, kern_c, plain, plain_c, plain[3])
+    (tau_j, v_free, W, frame), ops = vmap.contact_problem(s, target, mu, com)
+    lam = eng.solve(*ops, **eng.pgs_kwargs)
+    post = (substep.substep_post(eng.mt, eng.params, s, tau_j, v_free, W, lam,
+                                 frame),
+            engine.post_stage(eng.mt, eng.params, s, tau_j, v_free, W, lam,
+                              frame))
+    torch.cuda.synchronize()
+    cmp = measure.compare_post(eng.mt, eng.params, s, v_free, W, lam, *post)
+    log(phase, f"lanes vs vmap, a substep's post stage: {cmp.text}")
+    if not cmp.ok:
+        raise RuntimeError("the post kernel disagrees with post_stage")
     a = vmap._eager(s, target, mu, com)
     b = eng._eager(s, target, mu, com)
     dq = (a.qpos - b.qpos).abs().max().item()
@@ -1313,7 +1417,7 @@ def probe_phase(logdir, bj, gs):
     the shipped structure. Adds its launches and worst errors to the rows."""
     import torch
 
-    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.ops import pgs, substep
     from cat_tpu_torch.tools import pgs_structure_probe as probe
 
     phase = "probe"
@@ -1331,10 +1435,14 @@ def probe_phase(logdir, bj, gs):
     # the capture's rollout (its control steps) and one solve a structure
     # and capture
     # the substep kernels: the rollout and one contact problem a capture
+    # (the post kernel: the rollout alone)
+    rollout = max(probe.CAPTURE_STEPS) * env_decimation()
     bj["launches"] += check_launches(
-        phase, pgs.KERNEL, max(probe.CAPTURE_STEPS) * env_decimation()
-        + len(probe.VARIANTS) * captures,
-        substeps=max(probe.CAPTURE_STEPS) * env_decimation() + captures)
+        phase, pgs.KERNEL, rollout + len(probe.VARIANTS) * captures,
+        substeps=None)
+    for name, kernel in substep_kernels():
+        add_launches(phase, name, kernel, rollout if kernel is
+                     substep.POST_KERNEL else rollout + captures)
     gs["launches"] += check_launches(phase, pgs.GS_KERNEL, serial * captures,
                                      substeps=None)
     bad = probe.disagreements(records)
@@ -1554,7 +1662,9 @@ def main() -> int:
     del eng, s, physical, problems, box_ops
 
     dyn, con = kernel_dyn_phase(dev, smi)
-    SUBSTEP_ROWS.update(substep_dynamics=dyn, contact_rows=con)
+    post = kernel_post_phase(dev, smi)
+    SUBSTEP_ROWS.update(substep_dynamics=dyn, contact_rows=con,
+                        substep_post=post)
     bj["launches"] = gs["launches"] = 0
 
     graph_phase(dev, bj, gs, smi)
@@ -1848,7 +1958,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: dict(row, route="cuda", library_ms=None)[k] for k in keys}
-        for row in (bj, gs, dyn, con)]}), flush=True)
+        for row in (bj, gs, dyn, con, post)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

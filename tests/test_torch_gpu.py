@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (block-Jacobi and serial Gauss-Seidel PGS,
-and the substep's dynamics and contact rows) against their plain PyTorch
-versions, on a card.
+and the substep's dynamics, contact rows and post stage) against their
+plain PyTorch versions, on a card.
 
 These tests need a CUDA card and skip without one (the kernels have no CPU
 mode). They import nothing of JAX, so they run on a machine without it:
@@ -15,7 +15,8 @@ multiply-adds; batched contractions). A whole control step on the
 card against the same step on the CPU is held to the tolerances of
 tests/test_torch_engine.py. The substep kernels are held to
 ``measure.STAGE_TOL`` (the tolerances tests/test_lanes.py holds the JAX
-lanes layout to).
+lanes layout to), the post kernel to ``measure.compare_post`` (the
+tolerances tests/test_torch_post.py states).
 """
 
 import numpy as np
@@ -572,8 +573,8 @@ def test_substep_kernels_are_deterministic(cuda, name):
 def test_graph_equals_eager_on_each_layout(cuda, layout):
     """The control step's CUDA graph equals the eager loop bit for bit on
     both layouts (the raw engine on a heightfield, with CoM offsets); on
-    "lanes" each substep kernel launches once a substep, replayed or not,
-    and on "vmap" never."""
+    "lanes" each of the substep's three kernels launches once a substep,
+    replayed or not, and on "vmap" never."""
     from cat_tpu_torch.ops import substep
 
     model, step, s = _rough_raw_engine(cuda, 512)
@@ -582,7 +583,7 @@ def test_graph_equals_eager_on_each_layout(cuda, layout):
                              device=cuda).expand(512, model.nj).contiguous()
     mu = torch.full((512,), 0.9, device=cuda)
     com = 0.02 * torch.ones(512, model.nbody, 3, device=cuda)
-    kernels = (substep.DYN_KERNEL, substep.CONTACT_KERNEL)
+    kernels = [k for _, k in substep.SUBSTEP_KERNELS]
     before = [k.launches for k in kernels]
     eng(s, target, mu, com)                         # the warm-up, eager
     e = g = s
@@ -593,7 +594,7 @@ def test_graph_equals_eager_on_each_layout(cuda, layout):
     for f, a, b in zip(engine.SimState._fields, e, g):
         assert torch.equal(a, b), f
     per = 7 * eng.params.decimation if layout == "lanes" else 0
-    assert [k.launches - b for k, b in zip(kernels, before)] == [per, per]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [per] * 3
 
 
 @pytest.mark.gpu
@@ -604,6 +605,127 @@ def test_lanes_and_vmap_control_steps_agree_on_the_card(cuda):
     model, step, s = _rough_raw_engine(cuda, 512)
     target = torch.as_tensor(model.default_qpos_joints, dtype=torch.float32,
                              device=cuda).expand(512, model.nj)
+    mu = torch.full((512,), 0.9, device=cuda)
+    out = {lay: step._replace(layout=lay, graphs={})._eager(s, target, mu)
+           for lay in ("lanes", "vmap")}
+    a, b = out["vmap"], out["lanes"]
+    torch.testing.assert_close(b.qpos, a.qpos, rtol=0, atol=2e-3)
+    torch.testing.assert_close(b.qvel, a.qvel, rtol=0, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the post stage's kernel (substep_post.cu)
+# ---------------------------------------------------------------------------
+
+
+def _post_problem(device, name, n=N_SUBSTEP):
+    """(mt, params, state, tau_j, v_free, W, lam, frame) of a case of
+    tests/_substep_cases.py on the card: its contact problem through the
+    kernels, solved by the engine's solve, and a seeded state around it
+    (force history, air and contact times, touchdown)."""
+    from _substep_cases import make_case, torch_inputs
+
+    case = make_case(name, n)
+    m = case.model
+    eng = engine.make_batched_step(m, case.params, terrain=case.terrain,
+                                   device=device)
+    qpos, qvel, target, com = torch_inputs(case, device)
+    rng = np.random.default_rng(1)
+    nf = len(m.foot_report_ids)
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    s = engine.make_batched_init(m, n, device)._replace(
+        qpos=qpos, qvel=qvel,
+        force_hist=dev(rng.normal(0.0, 5.0, (n, 9 * m.nreport))),
+        current_air_time=dev(rng.integers(0, 3, (n, nf)) * case.params.dt),
+        last_air_time=dev(rng.uniform(0.0, 0.5, (n, nf))),
+        current_contact_time=dev(rng.integers(0, 3, (n, nf))
+                                 * case.params.dt),
+        last_contact_time=dev(rng.uniform(0.0, 0.5, (n, nf))),
+        touchdown=dev(rng.integers(0, 2, (n, nf)), torch.bool))
+    mu = dev(rng.uniform(0.5, 1.2, n))
+    (tau_j, v_free, W, frame), ops = eng.contact_problem(s, target, mu, com)
+    lam = eng.solve(*ops, **eng.pgs_kwargs)
+    return eng.mt, case.params, s, tau_j, v_free, W, lam, frame
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["solved", "on-limits", "at-threshold",
+                                   "zero-lam"])
+@pytest.mark.parametrize("name", ["solo12-plane", "solo12-rough", "go2",
+                                  "box"])
+def test_post_kernel_matches_plain(cuda, name, label):
+    """The post kernel against post_stage at N = 4096 on each case's
+    solved problem and on the three contrived inputs of
+    ``measure.post_contrived`` (joints exactly on their limits, feet within
+    1e-3 N of the contact threshold, no impulse): within
+    ``measure.compare_post``, only decisions within 4 float32 spacings of
+    their limit flipped; one launch; lam and the torque pass through."""
+    from cat_tpu_torch import measure
+    from cat_tpu_torch.ops import substep
+
+    mt, params, s, tau_j, v_free, W, lam, frame = _post_problem(cuda, name)
+    if label != "solved":
+        s, lam = measure.post_contrived(mt, params, s, lam)[label]
+    before = substep.POST_KERNEL.launches
+    out = substep.substep_post(mt, params, s, tau_j, v_free, W, lam, frame)
+    ref = engine.post_stage(mt, params, s, tau_j, v_free, W, lam, frame)
+    torch.cuda.synchronize()
+    assert substep.POST_KERNEL.launches == before + 1
+    assert out.lam is lam and out.applied_torque is tau_j
+    cmp = measure.compare_post(mt, params, s, v_free, W, lam, out, ref)
+    assert cmp.ok, cmp.text
+    assert len(cmp.flips) <= max(8, cmp.near), cmp.text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solo12-rough", "box"])
+def test_post_kernel_is_deterministic(cuda, name):
+    """Two launches on the same inputs give the same outputs bit for bit
+    (a fixed summation order, no atomics)."""
+    from cat_tpu_torch.ops import substep
+
+    args = _post_problem(cuda, name)
+    a, b = (substep.substep_post(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_post_kernel_takes_the_state_as_held(cuda):
+    """Non-contiguous state fields (a slice of a wider buffer) give the
+    same result as contiguous ones: the wrapper makes them contiguous."""
+    from cat_tpu_torch.ops import substep
+
+    mt, params, s, tau_j, v_free, W, lam, frame = _post_problem(
+        cuda, "solo12-plane", 256)
+    wide = torch.cat([s.qpos, torch.zeros_like(s.qpos)], dim=1)
+    strided = s._replace(qpos=wide[:, :s.qpos.shape[1]])
+    assert not strided.qpos.is_contiguous()
+    a = substep.substep_post(mt, params, strided, tau_j, v_free, W, lam,
+                             frame)
+    b = substep.substep_post(mt, params, s, tau_j, v_free, W, lam, frame)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solo12-plane", "go2", "box"])
+def test_lanes_and_vmap_control_steps_agree_on_each_model(cuda, name):
+    """One control step through the four kernels a substep ("lanes")
+    against the plain stages and post_stage ("vmap") from the same state:
+    within the chained-step tolerances of tests/test_torch_engine.py."""
+    from _substep_cases import make_case, torch_inputs
+
+    case = make_case(name, 512)
+    step = engine.make_batched_step(case.model, case.params,
+                                    terrain=case.terrain, device=cuda)
+    qpos, qvel, target, _ = torch_inputs(case, cuda)
+    s = engine.make_batched_init(case.model, 512, cuda)._replace(
+        qpos=qpos, qvel=0.2 * qvel)
     mu = torch.full((512,), 0.9, device=cuda)
     out = {lay: step._replace(layout=lay, graphs={})._eager(s, target, mu)
            for lay in ("lanes", "vmap")}

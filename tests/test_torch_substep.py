@@ -257,3 +257,79 @@ def test_model_tables_pack_the_header_order():
         # the ancestor bits of the last body: its leg's three joints
         if nj:
             assert ints[2 * nb + nb - 1] == 0b111 << (nj - 3)
+
+
+def test_nearly_parallel_pairs_are_left_out():
+    """A self-collision pair whose capsule axes are parallel to within
+    ``measure.PAIR_SIN2`` (but not to the last bit) and which lies more
+    than ``measure.PAIR_CLEAR_M`` clear of touching is left out by
+    ``ambiguous_contacts``: float32 does not resolve its closest points,
+    and its rows multiply no impulse. At the symmetric default pose none
+    (the two legs of a side exactly parallel); with one knee turned by
+    1e-4 rad the pairs of that knee's lower leg with its parallel
+    neighbour; with 0.05 rad none; and none of them once the capsules are
+    made wide enough to come within PAIR_CLEAR_M of touching."""
+    import dataclasses
+
+    case = make_case("solo12-plane", 1)
+    m = case.model
+    mt = td.ModelTensors.build(m, "cpu")
+    nct = m.ncand_terrain
+    q = torch.tensor(m.default_qpos(), dtype=torch.float32).repeat(3, 1)
+    q[1, 7 + 11] += 1e-4                # the last leg's knee
+    q[2, 7 + 11] += 0.05
+    kin = td.fk(mt, q, torch.zeros(3, m.nv), None)
+    left = measure.ambiguous_contacts(mt, case.terrain, kin)
+    assert not left[:, :nct].any()
+    assert not left[0].any() and not left[2].any()
+    flagged = left[1, nct:].nonzero()[:, 0].tolist()
+    assert flagged and all(
+        int(m.pair_body_a[p]) == m.nbody - 1
+        or int(m.pair_body_b[p]) == m.nbody - 1 for p in flagged)
+    from cat_tpu_torch.sim import collision
+
+    gap = collision.detect_pair_contacts(mt, kin)[0][1]
+    wide = dataclasses.replace(
+        mt, pair_rsum=mt.pair_rsum + gap - 0.5 * measure.PAIR_CLEAR_M)
+    assert not measure.ambiguous_contacts(wide, case.terrain, kin)[1].any()
+
+
+def test_float32_does_not_resolve_a_nearly_parallel_pairs_denominator():
+    """Why ``measure.PAIR_SIN2``: at sin^2 under it the closest-point
+    solve's a e - b^2 in float32 is off its float64 value by more than
+    that value itself (the pair of the test above, 36 m off the origin as
+    the bench's states are), above it by a small part of it."""
+    from cat_tpu_torch.tools import pair_probe
+
+    m = make_case("solo12-plane", 1).model
+    mt = td.ModelTensors.build(m, "cpu")
+    q = torch.tensor(m.default_qpos(), dtype=torch.float32).repeat(2, 1)
+    q[:, 0:2] = torch.tensor([36.3, -21.7])
+    q[0, 7 + 11] += 2e-4                # sin^2 ~ 4e-8
+    q[1, 7 + 11] += 0.01                # sin^2 ~ 1e-4
+    kin = td.fk(mt, q, torch.zeros(2, m.nv), None)
+    _, _, den32 = pair_probe.closest(mt, kin, torch.float32)
+    _, _, den64 = pair_probe.closest(mt, kin, torch.float64)
+    p = int(measure.parallel_pairs(mt, kin)[0].nonzero()[0, 0])
+    assert den64[0, p] < measure.PAIR_SIN2 < den64[1, p]
+    assert abs(float(den32[0, p]) - float(den64[0, p])) > float(den64[0, p])
+    assert abs(float(den32[1, p]) - float(den64[1, p])) < 0.1 * float(
+        den64[1, p])
+
+
+def test_pair_probe_readings_on_the_cpu(capsys):
+    """``tools/pair_probe.py`` reads a state (on the CPU the contact kernel
+    is the plain stage, so the two agree) and prints its table by sin^2."""
+    from types import SimpleNamespace
+
+    from cat_tpu_torch.tools import pair_probe
+
+    case = make_case("solo12-plane", 4)
+    mt = td.ModelTensors.build(case.model, "cpu")
+    qpos, qvel, target, _ = torch_inputs(case, "cpu")
+    eng = SimpleNamespace(mt=mt, params=case.params, terrain=case.terrain)
+    pair_probe.readings("cpu", eng, SimpleNamespace(qpos=qpos, qvel=qvel),
+                        target, None)
+    out = capsys.readouterr().out
+    assert "4 envs x 8 pairs" in out and "sin^2 (" in out
+    assert "E kernel-plain max 0 (over 1e-5: 0" in out
