@@ -75,10 +75,14 @@ class ConstraintSet:
         # seeds it instead of a polyak blend from scratch
         return torch.full((self.total_cols,), -1.0, device=self.device)
 
-    def curriculum_max_p(self, common_step: int, num_steps: int) -> torch.Tensor:
+    def curriculum_max_p(self, common_step, num_steps: int) -> torch.Tensor:
         """Anneal of the soft terms' max_p: 1 / (20 + progress (1/max_p0 -
-        20)); other terms keep their configured max_p."""
-        progress = min(common_step / num_steps, 1.0)
+        20)); other terms keep their configured max_p. ``common_step`` is
+        the () int32 step counter (an int works too); the progress is
+        computed on its device in float32, as the reference does
+        (cat_tpu/envs/cat.py:160), so a CUDA graph does not freeze it."""
+        progress = torch.clamp(torch.as_tensor(
+            common_step, device=self.device).float() / num_steps, max=1.0)
         t_end = 1.0 / torch.clamp(self._init_max_p, min=1e-6)
         annealed = 1.0 / (20.0 + progress * (t_end - 20.0))
         return torch.where(self._is_cur, annealed, self._init_max_p)

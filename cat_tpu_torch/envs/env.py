@@ -18,7 +18,9 @@ One ``step(state, action, generator)`` does, in the reference's order:
 
 Every random draw comes from the ``torch.Generator`` the caller passes, as
 full (N, ...) tensors; resets are masked selects, so the step never waits
-on the device.
+on the device and copies nothing from the host. On a CUDA device the whole
+step, the physics control step inside it, replays a CUDA graph
+(``utils/graphs.py``); ``_step_eager`` is the step it captures.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from cat_tpu_torch.sim import engine as engine_mod
 from cat_tpu_torch.sim import terrain as terrain_mod
@@ -36,6 +39,7 @@ from cat_tpu_torch.sim.engine import EngineParams, SimState
 from cat_tpu_torch.sim.maths import quat_from_euler_zyx, quat_rotate_inv, quat_yaw
 from cat_tpu_torch.sim.model import RobotModel
 from cat_tpu_torch.sim.terrain import Terrain
+from cat_tpu_torch.utils import graphs
 
 from .cat import ConstraintSet, ConstraintTerm
 from .types import EnvState, StepData
@@ -244,6 +248,9 @@ class CatEnv:
         self._cmd_hi = torch.tensor(
             [c.lin_vel_x[1], c.lin_vel_y[1], c.ang_vel_z[1]], device=dev)
         self._cmd_scale = torch.tensor([2.0, 2.0, 0.25], device=dev)
+        self._gravity_dir = torch.tensor([0.0, 0.0, -1.0], device=dev)
+        self._reset_templates = {}     # n -> SimState (``_reset_sim``)
+        self.graphs = {}               # _graph_key -> utils.graphs.Graph
         self.cset = ConstraintSet(constraint_terms, self._probe_data(2), dev)
         self.num_obs = 9 + 3 * self.num_actions  # 45 for Solo12
         if cfg.height_scan is not None:
@@ -280,8 +287,7 @@ class CatEnv:
     def step_data(self, sim: SimState, command, action, prev_action) -> StepData:
         n = command.shape[0]
         quat = sim.qpos[:, 3:7]
-        g_dir = torch.zeros_like(quat[:, :3])
-        g_dir[:, 2] = -1.0
+        g_dir = self._gravity_dir.expand_as(quat[:, :3])
         return StepData(
             joint_pos=sim.qpos[:, 7:][:, self.t2m],
             joint_vel=sim.qvel[:, 6:][:, self.t2m],
@@ -330,7 +336,7 @@ class CatEnv:
         def z(*shape):
             return torch.zeros(shape, device=dev)
 
-        sim = self._reset_sim(gen, n, origin)
+        sim = SimState(*(x.clone() for x in self._reset_sim(gen, n, origin)))
         command = self._sample_commands(gen, n)
         # randomize_body_coms, drawn after every other startup draw, so the
         # rest of the state is the one an env without it starts from
@@ -355,7 +361,7 @@ class CatEnv:
             max_p=self.cset.init_max_p(),
             episode_viol=z(n, nt), episode_prob=z(n, nt), episode_rew=z(n),
             origin=origin, terrain_row=trow, terrain_col=tcol,
-            common_step=0,
+            common_step=torch.zeros((), dtype=torch.int32, device=dev),
             acc_viol=z(nt), acc_prob=z(nt), acc_rew=z(), acc_len=z(),
             acc_count=z(), acc_term=z(3),
         )
@@ -384,7 +390,8 @@ class CatEnv:
         """Fresh randomized states for ALL envs (masked-selected later):
         pose xy = origin +-reset_pose_xy, yaw +-reset_yaw, joints =
         default * U(scale), zero velocity, default height above the
-        terrain there."""
+        terrain there. Every field but qpos is the reset template's own
+        tensor (``_reset_template``)."""
         ev = self.cfg.events
         u = self._rand(gen, n, 3 + self.model.nj)
         xy = origin + (2.0 * u[:, 0:2] - 1.0) * ev.reset_pose_xy
@@ -396,8 +403,17 @@ class CatEnv:
         qj = torch.clamp(qj, self._qj_lo, self._qj_hi)
         z = (float(self.model.default_base_pos[2])
              + terrain_mod.height_at(self.cfg.terrain, xy))[:, None]
-        base = engine_mod.make_batched_init(self.model, n, self.device)
-        return base._replace(qpos=torch.cat([xy, z, quat, qj], dim=1))
+        return self._reset_template(n)._replace(
+            qpos=torch.cat([xy, z, quat, qj], dim=1))
+
+    def _reset_template(self, n: int) -> SimState:
+        """n envs at the model's default pose, at rest
+        (``make_batched_init``), made once for each n: the step copies
+        nothing from the host, which a CUDA graph's capture refuses."""
+        if n not in self._reset_templates:
+            self._reset_templates[n] = engine_mod.make_batched_init(
+                self.model, n, self.device)
+        return self._reset_templates[n]
 
     def observe(self, state: EnvState, gen: torch.Generator) -> torch.Tensor:
         """Observation of the current state (the reset observation)."""
@@ -409,7 +425,36 @@ class CatEnv:
 
     def step(self, state: EnvState, raw_action: torch.Tensor,
              gen: torch.Generator):
-        """Returns (state', obs, reward, dones (float), time_outs (bool))."""
+        """Returns (state', obs, reward, dones (float), time_outs (bool)).
+        On a CUDA device a replay of the env step's CUDA graph
+        (``utils/graphs.py`` ``run``): the first call of an input signature
+        runs ``_step_eager`` (the warm-up), the second captures it, later
+        calls replay it; what it returns shares no memory with the graph.
+        The graph registers ``gen``: a replay draws what the eager step
+        would, and advances ``gen`` as far."""
+        if raw_action.device.type != "cuda":
+            return self._step_eager(state, raw_action, gen)
+        leaves, spec = pytree.tree_flatten((state, raw_action))
+        return graphs.run(
+            self.graphs, self._graph_key(leaves, gen),
+            lambda *x: self._step_eager(*pytree.tree_unflatten(x, spec), gen),
+            leaves, owners=(gen, self.cfg, *self.engine.captured()),
+            generators=(gen,))
+
+    def _graph_key(self, leaves, gen) -> tuple:
+        """What a capture of the env step bakes in: each input's shape,
+        dtype and device, the generator, the config (the event terms
+        among it), and what the control step's capture bakes in
+        (``Engine.capture_key``). Not the engine itself: a copy of it whose
+        calls run in profiler spans (the bench's) replays the same
+        graph."""
+        return (graphs.signature(leaves), id(gen), id(self.cfg),
+                *self.engine.capture_key())
+
+    def _step_eager(self, state: EnvState, raw_action: torch.Tensor,
+                    gen: torch.Generator):
+        """The env step launched op by op from the host: what the CUDA
+        graph captures."""
         cfg = self.cfg
         n = raw_action.shape[0]
 
@@ -518,9 +563,8 @@ class CatEnv:
             push = self._rand(gen, n) < p_push
             push_vel = self._uniform(gen, (n, 2), -cfg.events.push_vel_xy,
                                      cfg.events.push_vel_xy)
-            new_qvel = sim.qvel.clone()
-            new_qvel[:, 0:2] = push_vel
-            new_qvel[:, 2:6] = 0.0
+            new_qvel = torch.cat([push_vel, torch.zeros_like(sim.qvel[:, 2:6]),
+                                  sim.qvel[:, 6:]], dim=1)
             sim = sim._replace(
                 qvel=torch.where(push[:, None], new_qvel, sim.qvel))
         for t in cfg.events.extra_terms:

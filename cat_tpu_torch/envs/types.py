@@ -47,7 +47,7 @@ class EnvState(NamedTuple):
     origin: torch.Tensor             # (N, 2) spawn patch centre (flat: 0)
     terrain_row: torch.Tensor        # (N,) int32 difficulty row (flat: 0)
     terrain_col: torch.Tensor        # (N,) int32 terrain type column
-    common_step: int                 # total control steps
+    common_step: torch.Tensor        # () int32 total control steps
     # finished-episode accumulators, drained once per train iteration
     acc_viol: torch.Tensor           # (n_terms,)
     acc_prob: torch.Tensor           # (n_terms,)

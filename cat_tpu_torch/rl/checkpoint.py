@@ -36,6 +36,9 @@ SUFFIX = ".pt"
 # checkpoint without one restores with (the reference's _fill_defaults,
 # cat_tpu/rl/checkpoint.py:156-166): no CoM shift
 ADDED_LEAVES = {"env.com_offset": torch.zeros_like}
+# leaves once saved as a Python int, now a () tensor: the step counter,
+# on the device since the env step became a CUDA graph
+INT_LEAVES = ("env.common_step",)
 
 
 def _env_dict(es: EnvState) -> dict:
@@ -185,6 +188,10 @@ def restore_local_shard(path: str, ppo, es: EnvState,
     for name, fill in ADDED_LEAVES.items():
         if name in fw and name not in fg:
             fg[name] = fill(fw[name])
+    for name in INT_LEAVES:
+        if isinstance(fg.get(name), int) and isinstance(fw.get(name),
+                                                        torch.Tensor):
+            fg[name] = torch.tensor(fg[name], dtype=fw[name].dtype)
     if set(fw) != set(fg):
         raise ValueError(
             f"checkpoint {path}: its tree does not match the live state: "
@@ -223,16 +230,18 @@ def restore_local_shard(path: str, ppo, es: EnvState,
     p = tree["ppo"]
     ppo.net.load_state_dict(p["net"])
     # Adam keeps the live rate tensor and the live device's implementation
-    # (a card's checkpoint may resume on the CPU, and the other way round)
-    fused = [g["fused"] for g in ppo.opt.param_groups]
+    # (a card's checkpoint may resume on the CPU, and the other way round;
+    # only the card's Adam is capturable), its step counts on the
+    # parameters' device, as the fused Adam keeps them
+    live = [(g["fused"], g["capturable"]) for g in ppo.opt.param_groups]
     ppo.opt.load_state_dict(p["opt"])
     ppo.lr.copy_(p["lr"])
-    for group, on_device in zip(ppo.opt.param_groups, fused):
-        group["lr"], group["fused"] = ppo.lr, on_device
+    for group, (fused, capturable) in zip(ppo.opt.param_groups, live):
+        group.update(lr=ppo.lr, fused=fused, capturable=capturable)
         for q in group["params"]:
             if q in ppo.opt.state:
                 st = ppo.opt.state[q]
-                st["step"] = st["step"].to(q.device if on_device else "cpu")
+                st["step"] = st["step"].to(q.device)
     ppo.obs_rms = RmsState(**p["obs_rms"])
     ppo.value_rms = RmsState(**p["value_rms"])
     ppo.iteration = p["iteration"]

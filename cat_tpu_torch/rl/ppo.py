@@ -19,6 +19,14 @@ The learning rate lives in one device tensor that Adam reads: the
 adaptive-KL rule updates it on the device from a minibatch's (or an
 epoch's) KL, so the host never waits for the KL.
 
+On a CUDA device the rollout's draw (``draw``: the policy's forward, the
+Gaussian sample and its log-probability) and, in one process, the Adam
+step (``sgd_step``: forward, backward, the global-norm clip, the fused
+Adam step and rl_games' per-minibatch rate step) each replay a CUDA graph
+(``utils/graphs.py``), as the env step does; GAE, the permutation, the
+normalisers and the metrics run op by op. ``_draw_eager`` and
+``_sgd_step_eager`` are what the graphs capture.
+
 Data parallel (``dist``, a ``parallel.distributed.DistContext`` with a
 group): each rank steps its own envs, and an iteration crosses ranks with
 ``1 + updates_epochs x (1 + n_minibatches)`` all_reduces, as the
@@ -47,6 +55,7 @@ import torch
 from cat_tpu_torch.envs.env import CatEnv
 from cat_tpu_torch.envs.types import EnvState
 from cat_tpu_torch.parallel import mesh
+from cat_tpu_torch.utils import graphs
 
 from . import networks
 from .normalize import (RmsState, rms_init, rms_merge_moments, rms_moments,
@@ -125,13 +134,12 @@ def gae(rewards, values, dones, tdones, next_value, next_done, next_tdone,
 
 def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients by max_norm / |g| where |g| >= max_norm (optax
-    clip_by_global_norm). Returns |g|."""
+    clip_by_global_norm), each pass over them one multi-tensor op. Returns
+    |g|."""
     grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-    for g in grads:
-        g.mul_(scale)
+    torch._foreach_mul_(grads, scale)
     return norm
 
 
@@ -154,17 +162,21 @@ class PPO:
         self.net = net_cls(env.num_obs, env.num_actions, cfg.hidden,
                            generator).to(dev)
         # Adam reads the learning rate from this tensor; the anneal sets it
-        # once an iteration, the adaptive rule steps it on the device. On
-        # the card the fused Adam takes it as a device tensor in one
-        # multi-tensor kernel a step (a capturable Adam, the other way to
-        # take one, adds ~40 small kernels a step)
+        # once an iteration, the adaptive rule steps it on the device. The
+        # fused Adam takes it as a tensor in one multi-tensor kernel a
+        # step, its step counts on the parameters' device, so it reads
+        # nothing on the host (on the CPU too). On the card it must be
+        # capturable, or step() refuses the Adam step's graph; with fused,
+        # capturable changes no kernel
         self.lr = torch.tensor(cfg.learning_rate, device=dev)
         self.opt = torch.optim.Adam(self.net.parameters(), lr=self.lr,
-                                    eps=1e-5, fused=dev.type == "cuda")
+                                    eps=1e-5, fused=True,
+                                    capturable=dev.type == "cuda")
         self.obs_rms = rms_init((env.num_obs,), dev)
         self.value_rms = rms_init((), dev)
         self.iteration = 0
         self.next_obs = self.next_done = self.next_true_done = None
+        self.graphs = {}         # draw's and sgd_step's keys -> Graph
         if dist is not None:
             mesh.broadcast_(list(self.net.parameters()), 0, dist)
 
@@ -200,11 +212,13 @@ class PPO:
         self.lr.copy_(adaptive_kl_lr(self.lr, kl, cfg.kl_target, cfg.lr_min,
                                      cfg.lr_max))
 
-    def loss(self, mb, adv_mom):
+    def loss(self, mb, adv_mom, value_rms: RmsState = None):
         """Clipped surrogate (normalised advantages) + clipped value loss -
-        entropy bonus; returns (total, (pg_loss, v_loss, entropy, approx_kl,
+        entropy bonus, the value normalised by ``value_rms`` (default: the
+        learner's); returns (total, (pg_loss, v_loss, entropy, approx_kl,
         clipfrac))."""
         cfg = self.cfg
+        value_rms = self.value_rms if value_rms is None else value_rms
         obs, act, old_logp, adv, ret, old_val = mb
         mean, log_std, newvalue = self.net(obs)
         newlogp = networks.gaussian_logp(mean, log_std, act)
@@ -217,7 +231,7 @@ class PPO:
         pg_loss = torch.mean(torch.maximum(
             -adv * ratio,
             -adv * torch.clamp(ratio, 1 - cfg.clip_coef, 1 + cfg.clip_coef)))
-        newvalue_n = rms_normalize(self.value_rms, newvalue)
+        newvalue_n = rms_normalize(value_rms, newvalue)
         v_clipped = old_val + torch.clamp(newvalue_n - old_val,
                                           -cfg.clip_coef, cfg.clip_coef)
         v_loss = 0.5 * torch.mean(torch.maximum(
@@ -230,16 +244,54 @@ class PPO:
                 (torch.abs(ratio - 1.0) > cfg.clip_coef).float())
         return total, (pg_loss, v_loss, ent_loss, approx_kl, clipfrac)
 
+    def draw(self, obs: torch.Tensor, gen: torch.Generator):
+        """The rollout's draw at ``obs``: (mean, log_std, value, action,
+        logp), the action drawn from the policy with ``gen``. On a CUDA
+        device a replay of its CUDA graph (``utils/graphs.py`` ``run``),
+        which registers ``gen``."""
+        if obs.device.type != "cuda":
+            return self._draw_eager(obs, gen)
+        return graphs.run(
+            self.graphs, ("draw", graphs.signature((obs,)), id(gen),
+                          id(self.net)),
+            lambda o: self._draw_eager(o, gen), (obs,),
+            owners=(gen, self.net), generators=(gen,))
+
+    def _draw_eager(self, obs, gen):
+        """The draw launched op by op: what its CUDA graph captures."""
+        with torch.no_grad():
+            mean, log_std, value = self.net(obs)
+            action, logp = networks.sample_action(mean, log_std, gen)
+        return mean, log_std, value, action, logp
+
     def sgd_step(self, mb, adv_mom, lr=None):
         """One Adam step on one minibatch at the current learning rate (or
         at ``lr``, which then becomes the current one), then rl_games'
         per-minibatch rate step; returns the loss statistics (total, pg,
-        value, entropy, approx KL, clip fraction)."""
+        value, entropy, approx KL, clip fraction). On a CUDA device and
+        with no process group, a replay of its CUDA graph
+        (``utils/graphs.py`` ``run``), whose inputs are the minibatch,
+        ``adv_mom`` and the value normaliser; the gradients and Adam's
+        state are the parameters' own, written in place. With a group it
+        runs op by op around its all_reduce."""
         if lr is not None:
             self.lr.fill_(lr)
+        if self.dist is not None or adv_mom.device.type != "cuda":
+            return self._sgd_step_eager(mb, adv_mom)
+        inputs = (*mb, adv_mom, *self.value_rms)
+        # Adam's state dict is another after a restore (load_state_dict)
+        key = ("sgd", graphs.signature(inputs), id(self.net), id(self.opt),
+               id(self.opt.state))
+        return graphs.run(
+            self.graphs, key,
+            lambda *x: self._sgd_step_eager(x[:6], x[6], RmsState(*x[7:])),
+            inputs, owners=(self.net, self.opt, self.opt.state))
+
+    def _sgd_step_eager(self, mb, adv_mom, value_rms: RmsState = None):
+        """The Adam step launched op by op: what its CUDA graph captures."""
         cfg = self.cfg
         self.opt.zero_grad(set_to_none=False)
-        total, aux = self.loss(mb, adv_mom)
+        total, aux = self.loss(mb, adv_mom, value_rms)
         total.backward()
         params = list(self.net.parameters())
         aux = torch.stack([a.detach() for a in aux])
@@ -304,9 +356,7 @@ class PPO:
         obs, done, tdone = self.next_obs, self.next_done, self.next_true_done
         obs_rms = self.obs_rms
         for _ in range(cfg.num_steps):
-            with torch.no_grad():
-                mean, log_std, value = self.net(obs)
-                action, logp = networks.sample_action(mean, log_std, gen)
+            _, _, value, action, logp = self.draw(obs, gen)
             es, next_obs_raw, reward, next_done, time_out = env.step(
                 es, action, gen)
             if cfg.value_bootstrap:

@@ -14,12 +14,13 @@ branch, the JAX package's production path). One control step is
   5. per-body net contact forces with a 3-deep history, foot air time
 
 On a CUDA device ``Engine.__call__`` replays the control step from a CUDA
-graph (``_ControlStepGraph``): the first call of an input signature runs
+graph (``utils/graphs.py``): the first call of an input signature runs
 the loop eagerly (the warm-up), the second captures it, every later call
 copies its inputs into the graph's buffers and replays it. The replay runs
 the same kernels in the same order as the loop (``Engine._eager``), so
 its result equals the loop's bit for bit; on CPU tensors ``__call__`` is
-the loop.
+the loop, and so it is while another step's capture is under way (the env
+step's graph holds the loop).
 
 The substep runs in one of two layouts, as in the reference
 (``make_batched_step(layout=...)``): "lanes" (and "auto"), the production
@@ -38,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from cat_tpu_torch.ops import pgs, substep
+from cat_tpu_torch.utils import graphs
 
 from . import dynamics as dyn
 from . import solver
@@ -224,52 +226,6 @@ def contact_solver(model: RobotModel, sp: solver.SolverParams):
                      "'gs' (serial Gauss-Seidel) and 'bj' (block-Jacobi)")
 
 
-# the kernels whose launches a replay of the control step adds to their
-# counts
-_KERNELS = tuple(kernel for _, kernel in substep.KERNELS)
-
-
-class _ControlStepGraph:
-    """One control step captured in a CUDA graph for one input signature
-    (``Engine._graph_key``): contiguous static copies of the inputs, the
-    outputs the graph writes, and the launches each contact kernel counted
-    while it was captured. ``owners`` keeps the captured objects whose ids
-    are in the key alive, so no other object can take those ids."""
-
-    def __init__(self, owners):
-        self.owners = owners
-        self.graph = None
-
-    def capture(self, eng: "Engine", inputs):
-        """Capture ``eng._eager`` on static copies of ``inputs`` and replay
-        the graph once. Launches counted during the capture stand for this
-        first replay."""
-        self.inputs = tuple(None if t is None else
-                            t.clone(memory_format=torch.contiguous_format)
-                            for t in inputs)
-        before = [k.launches for k in _KERNELS]
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls (NCCL's watchdog) do
-        # not invalidate the capture
-        with torch.no_grad(), torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            self.out = eng._eager(SimState(*self.inputs[:-3]),
-                                  *self.inputs[-3:])
-        self.launches = tuple((k, k.launches - b)
-                              for k, b in zip(_KERNELS, before)
-                              if k.launches != b)
-        self.graph = graph
-        graph.replay()
-
-    def replay(self, inputs):
-        for buf, t in zip(self.inputs, inputs):
-            if buf is not None:
-                buf.copy_(t)
-        self.graph.replay()
-        for kernel, n in self.launches:
-            kernel.launches += n
-
-
 class Engine(NamedTuple):
     """The batched engine of one model on one device: its tensors, its
     parameters, its terrain, the contact solve and its arguments, and the
@@ -282,7 +238,7 @@ class Engine(NamedTuple):
     terrain: Terrain
     solve: Callable      # pgs.pgs_gs or pgs.pgs_bj
     pgs_kwargs: dict
-    graphs: dict         # _graph_key -> _ControlStepGraph
+    graphs: dict         # _graph_key -> utils.graphs.Graph
     layout: str = "auto"
 
     def contact_problem(self, s: SimState, target_q, mu, com_offset=None):
@@ -316,35 +272,25 @@ class Engine(NamedTuple):
         """One 50 Hz control step = ``decimation`` substeps; target_q
         (N, nj), mu (N,), com_offset (N, nbody, 3) or None. On a CUDA
         device a replay of the step's CUDA graph (module docstring); the
-        state returned shares no memory with the graph."""
-        if s.qpos.device.type != "cuda":
+        state returned shares no memory with the graph. While the current
+        stream is capturing another step's graph (the env step's), the
+        loop itself, so that it becomes part of that graph: a graph is
+        never replayed inside another's capture."""
+        if (s.qpos.device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
             return self._eager(s, target_q, mu, com_offset)
         return self._graphed(s, target_q, mu, com_offset)
 
     def _graphed(self, s: SimState, target_q, mu, com_offset=None):
-        """The control step from its CUDA graph for this input signature:
-        the first call runs ``_eager`` (the warm-up: cuBLAS handles, the
-        kernels' configurations and device tables, the terrain's tables),
-        the second captures it, later calls replay it. Returns clones of
-        the graph's outputs."""
-        inputs = (*s, target_q, mu, com_offset)
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in inputs):
-            raise RuntimeError("the control step's CUDA graph records no "
-                               "gradients: call Engine._eager to "
-                               "differentiate through it")
-        key = self._graph_key(s, target_q, mu, com_offset)
-        g = self.graphs.get(key)
-        if g is None:
-            self.graphs[key] = _ControlStepGraph(
-                (self.mt, self.params, self.terrain, self.pgs_kwargs))
-            return self._eager(s, target_q, mu, com_offset)
-        with torch.cuda.device(s.qpos.device):
-            if g.graph is None:
-                g.capture(self, inputs)
-            else:
-                g.replay(inputs)
-        return SimState(*(t.clone() for t in g.out))
+        """The control step from its CUDA graph for this input signature
+        (``utils/graphs.py`` ``run``): the first call runs ``_eager`` (the
+        warm-up: cuBLAS handles, the kernels' configurations and device
+        tables, the terrain's tables), the second captures it, later calls
+        replay it. Returns copies of the graph's outputs."""
+        return graphs.run(
+            self.graphs, self._graph_key(s, target_q, mu, com_offset),
+            lambda *x: self._eager(SimState(*x[:-3]), *x[-3:]),
+            (*s, target_q, mu, com_offset), owners=self.captured())
 
     def _eager(self, s: SimState, target_q, mu, com_offset=None) -> SimState:
         """The control step as a loop of ``decimation`` substeps, launched
@@ -356,17 +302,23 @@ class Engine(NamedTuple):
 
     def _graph_key(self, s: SimState, target_q, mu, com_offset=None):
         """What a capture bakes in: each input's shape, dtype and device
-        (the batch size, whether ``com_offset`` is given), the identity
-        of the captured model tensors, parameters, terrain and solve
-        arguments, and the layout ("auto" runs as "lanes"). The solve
-        itself is not in it: ``pgs_kwargs`` is made for it
-        (``contact_solver``), and a copy whose solve wraps the same one (a
-        profiler span) replays the same graph."""
-        return (tuple(None if t is None else (tuple(t.shape), t.dtype,
-                                               t.device)
-                      for t in (*s, target_q, mu, com_offset)),
-                id(self.mt), id(self.params), id(self.terrain),
-                id(self.pgs_kwargs),
+        (the batch size, whether ``com_offset`` is given), and
+        ``capture_key``."""
+        return (graphs.signature((*s, target_q, mu, com_offset)),
+                *self.capture_key())
+
+    def captured(self) -> tuple:
+        """The objects a capture of the control step reads: the model
+        tensors, parameters, terrain and solve arguments."""
+        return self.mt, self.params, self.terrain, self.pgs_kwargs
+
+    def capture_key(self) -> tuple:
+        """What a capture of the control step bakes in besides its inputs:
+        the identity of ``captured``'s objects and the layout ("auto"
+        runs as "lanes"). The solve itself is not in it: ``pgs_kwargs`` is
+        made for it (``contact_solver``), and a copy whose solve wraps the
+        same one (a profiler span) replays the same graph."""
+        return (*map(id, self.captured()),
                 "vmap" if self.layout == "vmap" else "lanes")
 
 

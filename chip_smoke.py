@@ -74,6 +74,18 @@ Phases, each printed with its elapsed seconds:
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
      2 PPO iterations, a checkpoint each; pgs_bj must launch 2 x 24 x 4
      times;
+  train-graph: the env step, the rollout's draw and the Adam step replay
+     CUDA graphs (``utils/graphs.py``); for Solo12-CaT-Flat-v0 and
+     Solo12-CaT-Rough-v0 at 4096 envs, two trainers from one seed, one as
+     it runs and one with those three steps op by op (``eager_trainer``),
+     4 iterations each in turns: after every iteration the env state, the
+     parameters, Adam's state, the normalisers, the generators' states
+     and the metrics equal bit for bit; each kernel launches 96 times an
+     iteration on both; the last iteration runs under torch.profiler: the
+     host's runtime calls that put work on the card (kernel and graph
+     launches, copies), the card's events, busy seconds and idle share;
+     each side's iteration seconds and the median of iterations 2-3,
+     beside the card's name and power limit;
   train-nccl: the same run through the grouped code path (``--coordinator``
      with one process, so every collective runs in NCCL on the card), one
      iteration: 36 all_reduces and no other collective in it, 96
@@ -240,6 +252,15 @@ PROBE_ENVS = 256     # probe: the reference tool's N
 PROBE_IMP_ERR = (0.037, 1.5)
 PROBE_VN_EXCESS = 0.172
 GRAPH_STEPS = 5      # graph: control steps held bit for bit, then timed
+# train-graph: the tasks (and agent presets) whose iterations are held
+# graphed against eager, and how many iterations, the last one profiled
+TRAIN_GRAPH = (("Solo12-CaT-Flat-v0", "clean_rl"),
+               ("Solo12-CaT-Rough-v0", "clean_rl"))
+TRAIN_GRAPH_ITERS = 4
+# the runtime calls that put work on the card, as torch.profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
 DRILL = dict(num_envs=256, iters=30, save_interval=10, kill_after=20)
 # cstr: the two terms the recipe leaves out, on every joint / the base, at
 # limits that uniform [-1, 1] actions cross within 24 control steps
@@ -1385,6 +1406,116 @@ def graph_phase(dev, bj, gs, smi):
                f"(host clock over {GRAPH_STEPS} synchronised steps; {smi})")
 
 
+def eager_trainer(trainer):
+    """``trainer`` with its env step, draw and Adam step run op by op:
+    their eager versions in place of the graphed methods, as instance
+    attributes (the bench's hooks sit there too). The control step keeps
+    its own graph: the iteration as it ran before those three were
+    graphed."""
+    trainer.env.step = trainer.env._step_eager
+    trainer.ppo.draw = trainer.ppo._draw_eager
+    trainer.ppo.sgd_step = trainer.ppo._sgd_step_eager
+    return trainer
+
+
+def profiled_iteration(trainer):
+    """One iteration under torch.profiler. Returns (metrics, host seconds
+    of the synchronised iteration, the HOST_LAUNCHES runtime calls by
+    name, the card's events, their busy seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = trainer.train_iteration()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    calls: dict = {}
+    events = prof.events()
+    for e in events:
+        if e.device_type == cpu and e.name in HOST_LAUNCHES:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    dev = [e for e in events if e.device_type == cuda
+           and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    return metrics, seconds, calls, len(dev), busy
+
+
+def train_graph_phase(logdir, smi, tasks=TRAIN_GRAPH,
+                      iters=TRAIN_GRAPH_ITERS) -> int:
+    """train-graph (module docstring); returns its pgs_bj launches."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch import train
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.rl import checkpoint
+
+    phase = "train-graph"
+    total = 0
+
+    def same(x, y):
+        return x == y or (math.isnan(x) and math.isnan(y))
+
+    for task, agent in tasks:
+        argv = train_argv(task, logdir, iters, "--agent", agent)
+        sides = {"graphed": train.Trainer(train.parse_args(argv)),
+                 "eager": eager_trainer(train.Trainer(train.parse_args(argv)))}
+        seconds = {side: [] for side in sides}
+        profiled = {}
+        for it in range(1, iters + 1):
+            metrics = {}
+            for side, tr in sides.items():
+                zero_counts()
+                if it < iters:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    metrics[side] = tr.train_iteration()
+                    torch.cuda.synchronize()
+                    seconds[side].append(time.perf_counter() - t0)
+                else:
+                    metrics[side], *profiled[side] = profiled_iteration(tr)
+                total += check_launches(f"{phase} {task} {side} it {it}",
+                                        pgs.KERNEL, 24 * env_decimation())
+            g, e = sides["graphed"], sides["eager"]
+            differ = checkpoint.mismatches(
+                checkpoint.state_dict(g.ppo, g.es, g.generators),
+                checkpoint.state_dict(e.ppo, e.es, e.generators))
+            differ += [k for k in metrics["graphed"]
+                       if not same(metrics["graphed"][k], metrics["eager"][k])]
+            log(phase, f"{task} ({agent}) iteration {it}: graphed vs eager, "
+                       f"leaves of the checkpoint's tree (env state, "
+                       f"learner, Adam, generators) and metrics that differ "
+                       f"in any bit: {differ or 'none'}")
+            if differ:
+                raise RuntimeError("the graphed iteration is not the eager "
+                                   "one bit for bit")
+        graphs = (len(g.env.graphs), len(g.ppo.graphs))
+        if graphs != (1, 2):
+            raise RuntimeError(f"graphs (env, learner) {graphs}, not (1, 2)")
+        steady = {side: float(np.median(s[1:])) for side, s in seconds.items()}
+        for side in sides:
+            s, calls, kernels, busy = profiled[side]
+            log(phase, f"{task} {side}: iteration seconds "
+                       f"{[round(x, 4) for x in seconds[side]]} (the first "
+                       f"graphed one warms up and captures), median of "
+                       f"iterations 2-{iters - 1} {steady[side]:.4f} s; "
+                       f"profiled iteration {iters}: {s:.4f} s, host calls "
+                       f"{dict(sorted(calls.items()))}, {kernels} card "
+                       f"events, busy {busy:.4f} s, idle "
+                       f"{100 * (1 - busy / s):.1f}% ({smi})")
+        log(phase, f"{task}: eager / graphed iteration "
+                   f"{steady['eager'] / steady['graphed']:.2f}x; host "
+                   f"calls an iteration "
+                   f"{sum(profiled['eager'][1].values())} -> "
+                   f"{sum(profiled['graphed'][1].values())}")
+        del sides, g, e
+    return total
+
+
 def load_actor(path, dev):
     """The network of a policy bundle (``policy_params.npz``) on the card,
     and its observation normaliser's mean and variance. Fails unless the
@@ -1696,6 +1827,8 @@ def main() -> int:
             pgs.KERNEL, train, PPO_ITERS)
         bj["launches"] += launches
         flat_dir = os.path.join(logdir, "clean_rl", "Solo12-CaT-Flat-v0")
+
+        bj["launches"] += train_graph_phase(logdir, smi)
 
         bj["launches"] += train_nccl_phase(logdir, flat_dir)
         bj["launches"] += train_dist_phase(logdir, flat_dir)

@@ -1,4 +1,6 @@
-"""The control step's CUDA graph (cat_tpu_torch/sim/engine.py).
+"""The CUDA graphs of the port's steps (cat_tpu_torch/utils/graphs.py):
+the control step's (cat_tpu_torch/sim/engine.py), and the env step's, the
+rollout draw's and the Adam step's.
 
 On the CPU ``Engine.__call__`` is the eager substep loop, makes no graph,
 and survives the bench's positional rebuild of the engine; the graph's key
@@ -9,8 +11,14 @@ same kernels in the same order) over 3 control steps, in each engine
 configuration the port runs: the flat block-Jacobi solve, the serial solve
 on a heightfield, Go2, the joint-less box (Cholesky M^-1) and CoM offsets;
 the states it returns share no memory with the graph, and each contact
-kernel counts one launch a substep, replayed or not. The file imports no
-JAX, so on a machine with a card:
+kernel counts one launch a substep, replayed or not. The same holds for
+the env step on the three configurations of tests/_torch_steps.py (Solo12
+flat, rough with the terrain curriculum, Go2 with the DR events; every
+EnvState field and output, and the generator's state), with the bench's
+spanned engine too, for the rollout's draw, and for the Adam step under
+the linear and adaptive-KL rates (parameters, gradients, Adam's moments
+and step counts, the rate). The file imports no JAX, so on a machine with
+a card:
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_graph.py
 """
@@ -18,11 +26,17 @@ JAX, so on a machine with a card:
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
+from _torch_steps import ENVS, minibatch
+from cat_tpu_torch import bench
 from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
 from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
 from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP, solo12_model
-from cat_tpu_torch.ops import pgs
+from cat_tpu_torch.ops import pgs, substep
+from cat_tpu_torch.rl import agent_cfgs
+from cat_tpu_torch.rl.normalize import RmsState
+from cat_tpu_torch.rl.ppo import PPO, PpoCfg
 from cat_tpu_torch.sim import engine, terrain
 from cat_tpu_torch.sim.solver import SolverParams
 
@@ -272,3 +286,131 @@ def test_graphed_step_refuses_inputs_that_need_gradients(cuda):
     eng, s, targets, mu, _ = _setup("flat-bj", cuda, 8)
     with pytest.raises(RuntimeError, match="gradients"):
         eng(s, targets[0].requires_grad_(), mu)
+
+
+# ---------------------------------------------------------------------------
+# the env step, the rollout's draw and the Adam step on the card
+# ---------------------------------------------------------------------------
+
+N_STEP = 256
+SGD_STEPS = 6
+
+
+def _bits(t):
+    return (t.view(torch.uint8) if t.dtype == torch.bool
+            else t.view(torch.int32) if t.dtype.itemsize == 4 else t)
+
+
+def _differ(a, b) -> list:
+    """The paths of the leaves of two results that differ in any bit."""
+    fa, fb = (pytree.tree_flatten_with_path(x)[0] for x in (a, b))
+    return [pytree.keystr(p) for (p, x), (_, y) in zip(fa, fb)
+            if x.shape != y.shape or x.dtype != y.dtype
+            or not torch.equal(_bits(x), _bits(y))] + (
+        ["structure"] if len(fa) != len(fb) else [])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ENVS))
+def test_env_step_graph_equals_eager_bit_for_bit(cuda, name):
+    """The warm-up, the capture and STEPS - 1 replays of the env step equal
+    ``_step_eager`` from the same state and generator state bit for bit
+    (every EnvState field and output, and the generator's state after),
+    each launching every kernel of the path once a substep; what they
+    return shares no memory with the graph. Then the bench's spanned copy
+    of the engine replays the same graph: no second capture, no span."""
+    env = ENVS[name][0](N_STEP, cuda)
+    es = env.init(torch.Generator(device=cuda).manual_seed(0), N_STEP)
+    actions = 0.5 * torch.randn(STEPS + 2, N_STEP, env.num_actions,
+                                generator=torch.Generator(
+                                    device=cuda).manual_seed(1), device=cuda)
+    g_graph = torch.Generator(device=cuda).manual_seed(2)
+    g_eager = torch.Generator(device=cuda).manual_seed(2)
+    path = [k for name_, k in substep.KERNELS if name_ != "pgs_gs"]
+    a = b = es
+    for k in range(STEPS + 1):
+        before = [kernel.launches for kernel in path]
+        out = env.step(a, actions[k], g_graph)
+        torch.cuda.synchronize()
+        assert [kernel.launches - n for kernel, n in zip(path, before)] == [
+            env.cfg.decimation] * len(path), f"env step {k}"
+        ref = env._step_eager(b, actions[k], g_eager)
+        assert _differ(out, ref) == [], f"env step {k}"
+        assert torch.equal(g_graph.get_state(), g_eager.get_state())
+        a, b = out[0], ref[0]
+    g, = env.graphs.values()
+    graph_mem = {t.untyped_storage().data_ptr()
+                 for t in g.inputs + tuple(g.out)}
+    assert not graph_mem & {t.untyped_storage().data_ptr()
+                            for t in pytree.tree_leaves(out)}
+
+    eng, calls = env.engine, []
+
+    def counted(*x, **kw):
+        calls.append(1)
+        return eng.solve(*x, **kw)
+
+    env.engine = bench.spanned_engine(eng._replace(solve=counted))
+    try:
+        out = env.step(a, actions[-1], g_graph)
+    finally:
+        env.engine = eng
+    ref = env._step_eager(b, actions[-1], g_eager)
+    assert calls == [] and len(env.graphs) == 1
+    assert _differ(out, ref) == []
+
+
+@pytest.mark.gpu
+def test_draw_graph_equals_eager_bit_for_bit(cuda):
+    env = ENVS["flat"][0](N_STEP, cuda)
+    ppo = PPO(env, agent_cfgs.clean_rl(), torch.Generator().manual_seed(0))
+    obs = torch.randn(STEPS + 1, N_STEP, env.num_obs, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(3))
+    g_graph = torch.Generator(device=cuda).manual_seed(4)
+    g_eager = torch.Generator(device=cuda).manual_seed(4)
+    for k in range(STEPS + 1):
+        out = ppo.draw(obs[k], g_graph)
+        assert _differ(out, ppo._draw_eager(obs[k], g_eager)) == [], k
+        assert torch.equal(g_graph.get_state(), g_eager.get_state())
+    assert len(ppo.graphs) == 1
+
+
+def _learner_state(ppo) -> dict:
+    out = {"lr": ppo.lr}
+    for name, p in ppo.net.named_parameters():
+        st = ppo.opt.state[p]
+        out.update({name: p, name + ".grad": p.grad,
+                    name + ".exp_avg": st["exp_avg"],
+                    name + ".exp_avg_sq": st["exp_avg_sq"],
+                    name + ".step": st["step"]})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["linear", "adaptive_kl"])
+def test_sgd_step_graph_equals_eager_bit_for_bit(cuda, mode):
+    """SGD_STEPS Adam steps through ``sgd_step`` (the warm-up, the capture,
+    replays) equal ``_sgd_step_eager``'s from the same learner bit for bit:
+    the statistics, parameters, gradients, Adam's moments and step counts
+    and the learning rate, with a new minibatch, value normaliser and (the
+    linear mode) rate at every step."""
+    env = ENVS["flat"][0](64, cuda)
+    cfg = PpoCfg(lr_mode=mode, minibatch_size=512)
+    graphed, eager = (PPO(env, cfg, torch.Generator().manual_seed(0))
+                      for _ in range(2))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for k in range(SGD_STEPS):
+        mb, adv_mom = minibatch(env, 512, gen)
+        graphed.value_rms = eager.value_rms = RmsState(
+            mean=torch.randn((), generator=gen, device=cuda),
+            var=1.0 + torch.rand((), generator=gen, device=cuda),
+            count=torch.tensor(100.0 * (k + 1), device=cuda))
+        lr = 1e-4 * (k + 1) if mode == "linear" else None
+        stats = graphed.sgd_step(mb, adv_mom, lr=lr)
+        if lr is not None:
+            eager.lr.fill_(lr)
+        ref = eager._sgd_step_eager(mb, adv_mom)
+        assert _differ(stats, ref) == [], f"Adam step {k}"
+        assert _differ(_learner_state(graphed),
+                       _learner_state(eager)) == [], f"Adam step {k}"
+    assert len(graphed.graphs) == 1
