@@ -34,10 +34,11 @@ iteration, and of each window of 20 control steps, go to ``samples``
 losses or state; each kernel of the cell (the contact solve, the
 substep's ``substep_dynamics``, ``contact_rows`` and ``substep_post``)
 launched exactly once a substep of the timed window; after the window,
-the program held against plain
-references that share no code with it (``bench_reference``): one more PPO
-iteration's minibatches and parameter change (PPO cells), and one control
-step's four substeps (all); the substep kernels against the plain stages
+the program held against plain references that share no code with it
+(``bench_reference``): one more PPO iteration's minibatches and parameter
+change, launched from the host on tape and bit for bit the iteration the
+window times (PPO cells), and one control step's four substeps (all);
+the substep kernels against the plain stages
 (``measure.compare_stages``) and the contact solve against its plain
 version (``measure.RTOL`` / ``ATOL_REL``) on the state after the window.
 Each reference check has a limit, and a control: the reference on inputs
@@ -78,6 +79,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from cat_tpu_torch import bench_reference as ref
 from cat_tpu_torch import measure, resolve_device
@@ -158,30 +160,45 @@ def spanned_engine(eng):
 class PpoSpans:
     """A PPO cell's spans, on for one run: ``env.step``,
     ``ppo.net.forward`` (the network's ``__call__`` calls it),
-    ``ppo.sgd_step`` and the engine's contact problem and solve (NAMES
-    adds the caller's span around the iteration). After the
-    ``mark_after``-th env step (the rollout's end) it calls ``sync`` and
-    appends the host clock to ``marks``."""
+    ``ppo.sgd_step`` and the engine's contact problem and solve, which
+    the iteration launched op by op calls (NAMES adds the caller's span
+    around the iteration), and ``ppo.rollout`` and ``ppo.learn``, the
+    replays of the graphed iteration (GRAPHED). Where ``mark_after`` is
+    given, it calls ``sync`` at the rollout's end and appends the host
+    clock to ``marks``: after ``ppo.rollout`` on the card, whose iteration
+    is the two replays; after the ``mark_after``-th env step on the CPU,
+    whose iteration is launched op by op and calls no ``ppo.rollout``."""
 
     NAMES = ("ppo.train_iteration", "env.step", "ppo.net.forward",
              "ppo.sgd_step", "engine.contact_problem", "engine.solve")
+    GRAPHED = ("ppo.rollout", "ppo.learn")
 
     def __init__(self, env, ppo, mark_after: Optional[int] = None,
                  sync=torch.cuda.synchronize):
         self.env, self.ppo, self.mark_after = env, ppo, mark_after
         self.sync, self.marks = sync, []
 
+    def _mark(self):
+        self.sync()
+        self.marks.append(time.perf_counter())
+
     def __enter__(self):
         env, ppo = self.env, self.ppo
         step = _span("env.step", env.step)
+        rollout = _span("ppo.rollout", ppo.rollout)
         calls = [0]
 
         def marked(*a, **k):
             out = step(*a, **k)
             calls[0] += 1
             if calls[0] == self.mark_after:
-                self.sync()
-                self.marks.append(time.perf_counter())
+                self._mark()
+            return out
+
+        def marked_rollout(*a, **k):
+            out = rollout(*a, **k)
+            if self.mark_after is not None:
+                self._mark()
             return out
 
         self.engine = env.engine
@@ -189,11 +206,14 @@ class PpoSpans:
         env.step = marked
         ppo.net.forward = _span("ppo.net.forward", ppo.net.forward)
         ppo.sgd_step = _span("ppo.sgd_step", ppo.sgd_step)
+        ppo.rollout = marked_rollout
+        ppo.learn = _span("ppo.learn", ppo.learn)
         return self
 
     def __exit__(self, *exc):
         self.env.engine = self.engine
         del self.env.step, self.ppo.net.forward, self.ppo.sgd_step
+        del self.ppo.rollout, self.ppo.learn
 
 
 def _innermost(spans, times):
@@ -440,12 +460,67 @@ def control_step_check(cell: Cell, eng, s, target, mu, com_offset=None):
     return s
 
 
+def learner_snapshot(ppo, gen):
+    """Clones of what an iteration changes of the learner (the parameters,
+    Adam's state, the rate, the device's iteration counter, the
+    normalisers, the carry, the host's iteration) and of the generator
+    ``gen``; returns a function that puts them back. It copies into the
+    tensors that the iteration's graphs write and replaces no object that
+    a graph's key holds (``checkpoint.restore`` replaces Adam's state)."""
+    owned = [ppo.lr, ppo.device_iteration, *ppo.net.parameters(),
+             *(t for st in ppo.opt.state.values() for t in st.values()
+               if isinstance(t, torch.Tensor))]
+    saved = [t.detach().clone() for t in owned]
+    kept = pytree.tree_map(torch.clone, (
+        ppo.obs_rms, ppo.value_rms, ppo.next_obs, ppo.next_done,
+        ppo.next_true_done))
+    iteration, state = ppo.iteration, gen.get_state()
+
+    def put_back():
+        with torch.no_grad():
+            for t, s in zip(owned, saved):
+                t.copy_(s)
+        (ppo.obs_rms, ppo.value_rms, ppo.next_obs, ppo.next_done,
+         ppo.next_true_done) = kept
+        ppo.iteration = iteration
+        gen.set_state(state)
+
+    return put_back
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def learner_check(cell: Cell, env, ppo, es, gen):
-    """One more PPO iteration on tape, replayed by the plain learner
-    (``bench_reference.learner_reference``); returns the env state after
-    it."""
+    """One more PPO iteration, run twice from one state: as the timed
+    window runs it (``ppo.train_iteration``: on the card the replays of
+    its two graphs), then launched from the host on tape
+    (``bench_reference.LearnerTape``), which the plain learner replays
+    (``bench_reference.learner_reference``). Check ``timed_path``: the two
+    agree bit for bit in every leaf of the checkpoint's tree (env state,
+    learner, Adam, generator) and every metric, so that the plain
+    learner's check holds for the timed path. Returns the env state after
+    the iteration."""
+    from cat_tpu_torch.rl import checkpoint
+
+    put_back = learner_snapshot(ppo, gen)
+    es_timed, m_timed = ppo.train_iteration(es, gen)
+    timed = pytree.tree_map(
+        lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+        checkpoint.state_dict(ppo, es_timed, {"ppo": gen}))
+    put_back()
     with ref.LearnerTape(env, ppo) as tape:
-        es, _ = ppo.train_iteration(es, gen)
+        es, metrics = ppo._train_iteration_eager(es, gen)
+    differ = checkpoint.mismatches(
+        timed, checkpoint.state_dict(ppo, es, {"ppo": gen})) + [
+        f"metrics.{k}" for k in sorted(metrics)
+        if not torch.equal(_bits(m_timed[k]), _bits(metrics[k]))]
+    cell.check("timed_path", not differ,
+               f"one iteration as the timed window runs it against the "
+               f"same one launched from the host on tape, from one state: "
+               f"leaves and metrics that differ in any bit: "
+               f"{differ[:8] or 'none'} ({len(differ)})")
     try:
         sound = ref.learner_reference(tape, ppo.cfg)
     except ref.Mismatch as e:
@@ -582,7 +657,7 @@ def ppo_cell(name: str, dev, n: int, args, card: str) -> Cell:
                 holder["es"], _ = ppo.train_iteration(es, gen)
 
         with PpoSpans(env, ppo):
-            bd = profiled(iteration, PpoSpans.NAMES)
+            bd = profiled(iteration, PpoSpans.NAMES + PpoSpans.GRAPHED)
         es = holder["es"]
         trace_device(cell, bd, per=1, unit="s")
         cell.log(f"spanned iteration {t1 - t0:.4f} s: rollout "

@@ -89,12 +89,14 @@ def relative_err(port, ref, scale=None, stored: bool = False,
 # ---------------------------------------------------------------- learner
 
 class LearnerTape:
-    """On for one ``ppo.train_iteration``: records the learner's state
-    before it, each ``env.step``'s (action, raw next obs, reward, done,
-    time-out), and for each ``ppo.sgd_step`` its minibatch, its advantage
-    moments, the parameters and Adam moments just before it and the
-    clipped gradient it stepped with; then the parameters after the
-    iteration."""
+    """On for one PPO iteration launched from the host
+    (``ppo._train_iteration_eager``: the same bodies the graphed iteration
+    captures, with each step called where the tape sees it): records the
+    learner's state before it, each ``env.step``'s (action, raw next obs,
+    reward, done, time-out), and for each ``ppo.sgd_step``
+    its minibatch, its advantage moments, the parameters and Adam moments
+    just before it and the clipped gradient it stepped with; then the
+    parameters after the iteration."""
 
     def __init__(self, env, ppo):
         self.env, self.ppo = env, ppo

@@ -2,7 +2,8 @@
 (port of cat_tpu/rl/checkpoint.py).
 
 A checkpoint holds the learner (network, Adam's state, both normalisers,
-the iteration, the learning rate, the rollout carry), every EnvState tensor
+the iteration, the learning rate, the rollout carry; the device's
+iteration counter is restored from the iteration), every EnvState tensor
 and the states of the run's torch.Generators, as plain dicts of tensors
 (``torch.load(weights_only=True)`` reads no NamedTuple), written with
 ``torch.save`` to a temporary name and moved into place. ``restore``
@@ -245,6 +246,9 @@ def restore_local_shard(path: str, ppo, es: EnvState,
     ppo.obs_rms = RmsState(**p["obs_rms"])
     ppo.value_rms = RmsState(**p["value_rms"])
     ppo.iteration = p["iteration"]
+    # the device's count is not a leaf: set in place from the host's (an
+    # iteration's graph reads it where it is)
+    ppo.device_iteration.fill_(ppo.iteration)
     ppo.next_obs, ppo.next_done, ppo.next_true_done = (
         p["next_obs"], p["next_done"], p["next_true_done"])
     e = tree["env"]

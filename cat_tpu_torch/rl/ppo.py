@@ -16,16 +16,26 @@ One ``train_iteration`` is:
     linear anneal over iterations, a constant, or the adaptive-KL rule.
 
 The learning rate lives in one device tensor that Adam reads: the
-adaptive-KL rule updates it on the device from a minibatch's (or an
-epoch's) KL, so the host never waits for the KL.
+linear anneal computes it on the device from the iteration counter
+``device_iteration`` (a () int32 tensor, the reference's
+``TrainState.iteration``), the adaptive-KL rule updates it from a
+minibatch's (or an epoch's) KL, so the host never waits for the KL and
+no host number enters an iteration.
 
-On a CUDA device the rollout's draw (``draw``: the policy's forward, the
-Gaussian sample and its log-probability) and, in one process, the Adam
-step (``sgd_step``: forward, backward, the global-norm clip, the fused
-Adam step and rl_games' per-minibatch rate step) each replay a CUDA graph
-(``utils/graphs.py``), as the env step does; GAE, the permutation, the
-normalisers and the metrics run op by op. ``_draw_eager`` and
-``_sgd_step_eager`` are what the graphs capture.
+On a CUDA device with no process group an iteration is the replays of two
+CUDA graphs (``utils/graphs.py``), the counterpart of the reference's one
+compiled ``train_iteration``: ``rollout`` (the draws, env steps, obs
+normaliser updates and the bootstrap value) and ``learn`` (GAE through
+the last Adam step, the normalisers, the permutations and the metrics).
+Their bodies (``_rollout``, ``_learn``) run the steps' eager versions; two
+graphs, so that a caller can time the rollout apart from the learner.
+The draw (``draw``: the policy's forward, the Gaussian sample and its
+log-probability), the env step and, in one process, the Adam step
+(``sgd_step``: forward, backward, the global-norm clip, the fused Adam
+step and rl_games' per-minibatch rate step) also replay graphs of their
+own when called alone, as the eager iteration (``_train_iteration_eager``,
+the CPU's and a group's) calls them. ``_draw_eager`` and
+``_sgd_step_eager`` are what those graphs capture.
 
 Data parallel (``dist``, a ``parallel.distributed.DistContext`` with a
 group): each rank steps its own envs, and an iteration crosses ranks with
@@ -51,6 +61,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from cat_tpu_torch.envs.env import CatEnv
 from cat_tpu_torch.envs.types import EnvState
@@ -174,9 +185,15 @@ class PPO:
                                     capturable=dev.type == "cuda")
         self.obs_rms = rms_init((env.num_obs,), dev)
         self.value_rms = rms_init((), dev)
+        # the host's count (logs, checkpoints) and the device's, which the
+        # linear anneal reads; a restore sets the second from the first
         self.iteration = 0
+        self.device_iteration = torch.zeros((), dtype=torch.int32,
+                                            device=dev)
+        self._num_iterations = torch.tensor(float(cfg.num_iterations),
+                                            device=dev)
         self.next_obs = self.next_done = self.next_true_done = None
-        self.graphs = {}         # draw's and sgd_step's keys -> Graph
+        self.graphs = {}   # the iteration's and the steps' keys -> Graph
         if dist is not None:
             mesh.broadcast_(list(self.net.parameters()), 0, dist)
 
@@ -196,13 +213,17 @@ class PPO:
         self.next_true_done = torch.zeros(n, device=first_obs_raw.device)
 
     def set_iteration_lr(self):
-        """The linear anneal to 0 over num_iterations, or the constant; the
-        adaptive modes carry the rate over from the last iteration."""
+        """The linear anneal to 0 over num_iterations, from
+        ``device_iteration`` on the device in the reference's float32
+        formula (cat_tpu/rl/ppo.py:242-243: frac = 1 - it / N, lr = lr0
+        max(frac, 0); N a device tensor, so the card divides and does not
+        multiply by a reciprocal), or the constant; the adaptive modes
+        carry the rate over from the last iteration."""
         cfg = self.cfg
         mode = cfg.resolved_lr_mode
         if mode == "linear":
-            self.lr.fill_(cfg.learning_rate
-                          * max(1.0 - self.iteration / cfg.num_iterations, 0.0))
+            frac = 1.0 - self.device_iteration.float() / self._num_iterations
+            self.lr.copy_(cfg.learning_rate * torch.clamp(frac, min=0.0))
         elif mode == "constant":
             self.lr.fill_(cfg.learning_rate)
 
@@ -264,21 +285,23 @@ class PPO:
             action, logp = networks.sample_action(mean, log_std, gen)
         return mean, log_std, value, action, logp
 
-    def sgd_step(self, mb, adv_mom, lr=None):
+    def sgd_step(self, mb, adv_mom, lr=None, value_rms: RmsState = None):
         """One Adam step on one minibatch at the current learning rate (or
-        at ``lr``, which then becomes the current one), then rl_games'
-        per-minibatch rate step; returns the loss statistics (total, pg,
-        value, entropy, approx KL, clip fraction). On a CUDA device and
-        with no process group, a replay of its CUDA graph
+        at ``lr``, which then becomes the current one), the value
+        normalised by ``value_rms`` (default: the learner's), then
+        rl_games' per-minibatch rate step; returns the loss statistics
+        (total, pg, value, entropy, approx KL, clip fraction). On a CUDA
+        device and with no process group, a replay of its CUDA graph
         (``utils/graphs.py`` ``run``), whose inputs are the minibatch,
         ``adv_mom`` and the value normaliser; the gradients and Adam's
         state are the parameters' own, written in place. With a group it
         runs op by op around its all_reduce."""
         if lr is not None:
             self.lr.fill_(lr)
+        value_rms = self.value_rms if value_rms is None else value_rms
         if self.dist is not None or adv_mom.device.type != "cuda":
-            return self._sgd_step_eager(mb, adv_mom)
-        inputs = (*mb, adv_mom, *self.value_rms)
+            return self._sgd_step_eager(mb, adv_mom, value_rms)
+        inputs = (*mb, adv_mom, *value_rms)
         # Adam's state dict is another after a restore (load_state_dict)
         key = ("sgd", graphs.signature(inputs), id(self.net), id(self.opt),
                id(self.opt.state))
@@ -348,16 +371,100 @@ class PPO:
 
     def train_iteration(self, es: EnvState, gen: torch.Generator
                         ) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
-        cfg, env = self.cfg, self.env
-        self.set_iteration_lr()
+        """One iteration: (es', metrics). On a CUDA device with no process
+        group, the replays of its two CUDA graphs, ``rollout`` then
+        ``learn``; else launched op by op from the host
+        (``_train_iteration_eager``)."""
+        if self.dist is not None or self.env.device.type != "cuda":
+            return self._train_iteration_eager(es, gen)
+        es, batch = self.rollout(es, gen)
+        return self.learn(es, batch, gen)
 
-        # ---- rollout ----
+    def _train_iteration_eager(self, es: EnvState, gen: torch.Generator):
+        """The iteration launched from the host, its draws, env steps and
+        Adam steps through ``draw``, ``env.step`` and ``sgd_step`` (on a
+        card each of those a replay of its own graph): the path of a
+        process group and of the CPU."""
+        carry = self.next_obs, self.next_done, self.next_true_done
+        es, carry, obs_rms, batch = self._rollout(
+            es, carry, self.obs_rms, gen, self.draw, self.env.step)
+        self.next_obs, self.next_done, self.next_true_done = carry
+        es, self.value_rms, self.obs_rms, metrics = self._learn(
+            es, batch, carry[1], carry[2], self.value_rms, gen,
+            self.sgd_step, obs_rms)
+        self.iteration += 1
+        return es, metrics
+
+    def rollout(self, es: EnvState, gen: torch.Generator):
+        """The rollout (``_rollout``) as a replay of its CUDA graph
+        (``utils/graphs.py`` ``run``), whose inputs are the env state's
+        leaves, the carry and the obs normaliser; the captured body runs
+        the draw and the env step op by op. Sets the carry and the obs
+        normaliser; returns (es, batch)."""
+        leaves, spec = pytree.tree_flatten(es)
+        k = len(leaves)
+        inputs = (*leaves, self.next_obs, self.next_done,
+                  self.next_true_done, *self.obs_rms)
+
+        def body(*x):
+            return self._rollout(
+                pytree.tree_unflatten(x[:k], spec), x[k:k + 3],
+                RmsState(*x[k + 3:]), gen, self._draw_eager,
+                self.env._step_eager)
+
+        es, carry, self.obs_rms, batch = graphs.run(
+            self.graphs, ("rollout", *self.env._graph_key(inputs, gen),
+                          id(self.net), self.cfg),
+            body, inputs, owners=(gen, self.net, self.env.cfg,
+                                  *self.env.engine.captured()),
+            generators=(gen,))
+        self.next_obs, self.next_done, self.next_true_done = carry
+        return es, batch
+
+    def learn(self, es: EnvState, batch, gen: torch.Generator):
+        """GAE through the last Adam step (``_learn``) as a replay of its
+        CUDA graph, whose inputs are the env state's leaves, the rollout's
+        batch, the carry's dones and the value normaliser; the captured
+        body runs the Adam steps op by op. The parameters, Adam's state,
+        the learning rate and ``device_iteration`` are the learner's own,
+        written in place. Sets the value normaliser; returns (es,
+        metrics)."""
+        leaves, spec = pytree.tree_flatten(es)
+        k, m = len(leaves), len(batch)
+        inputs = (*leaves, *batch, self.next_done, self.next_true_done,
+                  *self.value_rms)
+
+        def body(*x):
+            es, value_rms, _, metrics = self._learn(
+                pytree.tree_unflatten(x[:k], spec), x[k:k + m], x[k + m],
+                x[k + m + 1], RmsState(*x[k + m + 2:]), gen,
+                self._sgd_step_eager)
+            return es, value_rms, metrics
+
+        # Adam's state dict is another after a restore (load_state_dict)
+        key = ("learn", *self.env._graph_key(inputs, gen), id(self.net),
+               id(self.opt), id(self.opt.state), self.cfg)
+        es, self.value_rms, metrics = graphs.run(
+            self.graphs, key, body, inputs,
+            owners=(gen, self.net, self.opt, self.opt.state, self.env.cfg,
+                    *self.env.engine.captured()),
+            generators=(gen,))
+        self.iteration += 1
+        return es, metrics
+
+    def _rollout(self, es: EnvState, carry, obs_rms: RmsState, gen, draw,
+                 step):
+        """``num_steps`` draws (``draw``) and env steps (``step``) from the
+        carry (obs, done, tdone), the obs normaliser updated every step,
+        then the bootstrap value. Returns (es, carry, obs_rms, batch):
+        batch the (T, N, ...) stacks of obs, action, logp, value, reward,
+        done and tdone, then the bootstrap value."""
+        cfg = self.cfg
+        obs, done, tdone = carry
         traj = []
-        obs, done, tdone = self.next_obs, self.next_done, self.next_true_done
-        obs_rms = self.obs_rms
         for _ in range(cfg.num_steps):
-            _, _, value, action, logp = self.draw(obs, gen)
-            es, next_obs_raw, reward, next_done, time_out = env.step(
+            _, _, value, action, logp = draw(obs, gen)
+            es, next_obs_raw, reward, next_done, time_out = step(
                 es, action, gen)
             if cfg.value_bootstrap:
                 # a step cut off by the time limit keeps gamma V(s) of the
@@ -367,18 +474,31 @@ class PPO:
             obs_rms = rms_update(obs_rms, next_obs_raw)
             obs = rms_normalize(obs_rms, next_obs_raw)
             done, tdone = next_done, time_out.float()
-        self.next_obs, self.next_done, self.next_true_done = obs, done, tdone
-        b_obs, b_act, b_logp, b_val, b_rew, b_done, b_tdone = (
-            torch.stack(x) for x in zip(*traj))
-
-        # ---- dual-done GAE ----
         with torch.no_grad():
             next_value = self.net(obs)[2]
+        batch = (*(torch.stack(x) for x in zip(*traj)), next_value)
+        return es, (obs, done, tdone), obs_rms, batch
+
+    def _learn(self, es: EnvState, batch, done, tdone, value_rms: RmsState,
+               gen, sgd_step, obs_rms: RmsState = None):
+        """The iteration's learning rate, dual-done GAE on the rollout's
+        ``batch`` (``done`` and ``tdone`` the carry's), ``drain_metrics``,
+        the value and return normalisation, ``updates_epochs`` epochs of
+        minibatch Adam steps (``sgd_step``) and the metrics; then
+        ``device_iteration`` + 1. With a group, the boundary merge
+        (``obs_rms`` this rank's obs normaliser after the rollout, merged
+        with the others'). Returns (es, value_rms, obs_rms, metrics)."""
+        cfg, env = self.cfg, self.env
+        self.set_iteration_lr()
+        b_obs, b_act, b_logp, b_val, b_rew, b_done, b_tdone, next_value = (
+            batch)
+
+        # ---- dual-done GAE ----
         adv = gae(b_rew, b_val, b_done, b_tdone, next_value, done, tdone,
                   cfg.gamma, cfg.gae_lambda)
         returns = adv + b_val
 
-        nb = cfg.num_steps * obs.shape[0]
+        nb = b_obs.shape[0] * b_obs.shape[1]
         b_obs = b_obs.reshape(nb, -1)
         b_act = b_act.reshape(nb, -1)
         b_logp, b_adv = b_logp.reshape(nb), adv.reshape(nb)
@@ -402,13 +522,12 @@ class PPO:
             es = es._replace(running_max=rmax)
             ep_metrics = dict(zip(keys, scal[:len(keys)].unbind()))
             mean_reward, mean_done = scal[len(keys)], scal[len(keys) + 1]
-        self.obs_rms = obs_rms
 
         # ---- value / return normalisation, in sequence ----
-        self.value_rms = rms_merge_moments(self.value_rms, *v_mom)
-        b_vals = rms_normalize(self.value_rms, b_vals)
-        self.value_rms = rms_merge_moments(self.value_rms, *r_mom)
-        b_ret = rms_normalize(self.value_rms, b_ret)
+        value_rms = rms_merge_moments(value_rms, *v_mom)
+        b_vals = rms_normalize(value_rms, b_vals)
+        value_rms = rms_merge_moments(value_rms, *r_mom)
+        b_ret = rms_normalize(value_rms, b_ret)
 
         # ---- minibatch SGD: each rank takes its share of a minibatch ----
         mb_size = cfg.minibatch_size // (self.dist.world_size if self.dist
@@ -429,14 +548,14 @@ class PPO:
             if self.dist is not None:
                 mesh.all_mean_(adv_moms, self.dist)
             epoch = torch.stack([
-                self.sgd_step([x[i * mb_size:(i + 1) * mb_size]
-                               for x in pdata], adv_moms[i])
+                sgd_step([x[i * mb_size:(i + 1) * mb_size] for x in pdata],
+                         adv_moms[i], value_rms=value_rms)
                 for i in range(n_mb)])
             if cfg.resolved_lr_mode == "adaptive_kl_epoch":
                 self.step_lr(torch.mean(epoch[:, 4]))   # the epoch's mean KL
             stats.append(epoch)
         stats = torch.mean(torch.cat(stats), dim=0)
-        self.iteration += 1
+        self.device_iteration.add_(1)
         names = ("Loss/mean_surrogate_loss", "Loss/mean_pg_loss",
                  "Loss/mean_v_loss", "Loss/mean_entropy_loss",
                  "Loss/approx_kl", "Loss/clipfrac")
@@ -447,4 +566,4 @@ class PPO:
             "Train/learning_rate": self.lr.clone(),
             **ep_metrics,
         })
-        return es, metrics
+        return es, value_rms, obs_rms, metrics

@@ -3,8 +3,9 @@
   python -m cat_tpu_torch.trace_iteration [--task Solo12-CaT-Flat-v0]
       [--num_envs 4096] [--out FILE]
 
-After one warm-up iteration of the task (clean_rl preset; the flat task
-unless --task names another, e.g. Solo12-CaT-Rough-v0) it times the parts,
+After two warm-up iterations of the task (clean_rl preset; the flat task
+unless --task names another, e.g. Solo12-CaT-Rough-v0; the first warms up
+the iteration's CUDA graphs, the second captures them) it times the parts,
 then one iteration, then profiles one more (in that order: the profiler's
 hooks slow later launches), and prints one JSON object:
   * ``iteration_s``: host wall time of one iteration, synchronised;
@@ -52,7 +53,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     es = env.init(gen, n)
     ppo = PPO(env, spec.make_agent_cfg(), torch.Generator().manual_seed(1))
     ppo.start(env.observe(es, gen))
-    es, _ = ppo.train_iteration(es, gen)             # warm-up
+    for _ in range(2):     # the iteration's graphs warm up, then capture
+        es, _ = ppo.train_iteration(es, gen)
     torch.cuda.synchronize()
 
     obs = env.observe(es, gen)

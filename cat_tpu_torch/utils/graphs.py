@@ -1,6 +1,7 @@
 """CUDA graphs of the port's steps: the physics control step
-(``sim/engine.py``), the env step (``envs/env.py``), and the rollout's
-draw and the Adam step (``rl/ppo.py``) share this one helper.
+(``sim/engine.py``), the env step (``envs/env.py``), the rollout's draw,
+the Adam step and the PPO iteration's two graphs, its rollout and its
+learning (``rl/ppo.py``), share this one helper.
 
 A step is replayed from a graph captured for one input signature, its key
 (the caller's: the inputs' shapes, dtypes and devices, ``signature``, and

@@ -74,18 +74,26 @@ Phases, each printed with its elapsed seconds:
   train: ``cat_tpu_torch.train`` for Solo12-CaT-Flat-v0 at 4096 envs,
      2 PPO iterations, a checkpoint each; pgs_bj must launch 2 x 24 x 4
      times;
-  train-graph: the env step, the rollout's draw and the Adam step replay
-     CUDA graphs (``utils/graphs.py``); for Solo12-CaT-Flat-v0 and
-     Solo12-CaT-Rough-v0 at 4096 envs, two trainers from one seed, one as
-     it runs and one with those three steps op by op (``eager_trainer``),
-     4 iterations each in turns: after every iteration the env state, the
-     parameters, Adam's state, the normalisers, the generators' states
-     and the metrics equal bit for bit; each kernel launches 96 times an
-     iteration on both; the last iteration runs under torch.profiler: the
-     host's runtime calls that put work on the card (kernel and graph
-     launches, copies), the card's events, busy seconds and idle share;
-     each side's iteration seconds and the median of iterations 2-3,
-     beside the card's name and power limit;
+  train-graph: an iteration replays two CUDA graphs (``rl/ppo.py``
+     ``rollout`` and ``learn``, through ``utils/graphs.py``); for
+     Solo12-CaT-Flat-v0 (clean_rl, the linear rate), Solo12-CaT-Rough-v0
+     (clean_rl) and Go2-CaT-Flat-v0 (rl_games, the per-minibatch
+     adaptive rate) at 4096 envs, three trainers from one seed, one as
+     it runs, one with its iteration launched from the host and each env
+     step, draw and Adam step a replay of its own graph
+     (``steps_trainer``), and one with its iteration launched from the
+     host and those steps op by op (``eager_trainer``), 5 iterations each
+     in turns: after every iteration the first two's env state,
+     parameters, Adam's state, normalisers, generators' states and
+     metrics equal the third's bit for bit; each kernel launches 96 times
+     an iteration on each; the graphed trainer holds the iteration's two
+     graphs and no env step graph, the steps trainer the draw's, the Adam
+     step's and the env step's; the last iteration runs under
+     torch.profiler: the host's runtime calls that put work on the card
+     (kernel and graph launches, copies, sets), the card's events, busy
+     seconds and idle share of that iteration; each side's iteration
+     seconds and the median of iterations 3-4, beside the card's name
+     and power limit;
   train-nccl: the same run through the grouped code path (``--coordinator``
      with one process, so every collective runs in NCCL on the card), one
      iteration: 36 all_reduces and no other collective in it, 96
@@ -126,8 +134,10 @@ Phases, each printed with its elapsed seconds:
      launches; metrics.jsonl has 2 lines with every key of the JAX
      package's Go2 log);
   resume: ckpt_2 restored into a fresh trainer equals the saved state bit
-     for bit (every tensor, the generators), and one more iteration runs
-     from the carried learning rate (96 launches);
+     for bit (every tensor, the generators), and 3 more iterations run
+     from the carried learning rate through the iteration's graphs (its
+     warm-up, capture and a replay; 96 launches each), each equal bit for
+     bit to the same checkpoint's iteration op by op;
   play-run: ``cat_tpu_torch.play`` on that run directory at 4096 envs for
      200 control steps (800 launches): it restores the card's checkpoint
      non-strict into Go2-CaT-Flat-Play-v0, exports it and writes
@@ -255,8 +265,11 @@ GRAPH_STEPS = 5      # graph: control steps held bit for bit, then timed
 # train-graph: the tasks (and agent presets) whose iterations are held
 # graphed against eager, and how many iterations, the last one profiled
 TRAIN_GRAPH = (("Solo12-CaT-Flat-v0", "clean_rl"),
-               ("Solo12-CaT-Rough-v0", "clean_rl"))
-TRAIN_GRAPH_ITERS = 4
+               ("Solo12-CaT-Rough-v0", "clean_rl"),
+               ("Go2-CaT-Flat-v0", "rl_games"))
+TRAIN_GRAPH_ITERS = 5
+RESUME_ITERS = 3     # resume: iterations after the restore (warm-up,
+                     # capture, replay of the iteration's graphs)
 # the runtime calls that put work on the card, as torch.profiler names them
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -1407,15 +1420,39 @@ def graph_phase(dev, bj, gs, smi):
 
 
 def eager_trainer(trainer):
-    """``trainer`` with its env step, draw and Adam step run op by op:
-    their eager versions in place of the graphed methods, as instance
-    attributes (the bench's hooks sit there too). The control step keeps
-    its own graph: the iteration as it ran before those three were
-    graphed."""
+    """``trainer`` with its iteration launched from the host and its env
+    step, draw and Adam step run op by op: their eager versions in place
+    of the graphed methods, as instance attributes (the bench's hooks sit
+    there too). The control step keeps its own graph: no other graph
+    runs in its iteration."""
+    trainer.ppo.train_iteration = trainer.ppo._train_iteration_eager
     trainer.env.step = trainer.env._step_eager
     trainer.ppo.draw = trainer.ppo._draw_eager
     trainer.ppo.sgd_step = trainer.ppo._sgd_step_eager
     return trainer
+
+
+def steps_trainer(trainer):
+    """``trainer`` with its iteration launched from the host and each env
+    step, draw and Adam step a replay of that step's own graph (the
+    graphs a group's iteration and play.py replay)."""
+    trainer.ppo.train_iteration = trainer.ppo._train_iteration_eager
+    return trainer
+
+
+def trainer_differences(g, e, mg, me) -> list:
+    """The leaves of two trainers' checkpoint trees (env state, learner,
+    Adam, generators) and the metrics (``mg``, ``me``) that differ in any
+    bit."""
+    from cat_tpu_torch.rl import checkpoint
+
+    def same(x, y):
+        return x == y or (math.isnan(x) and math.isnan(y))
+
+    differ = checkpoint.mismatches(
+        checkpoint.state_dict(g.ppo, g.es, g.generators),
+        checkpoint.state_dict(e.ppo, e.es, e.generators))
+    return differ + [k for k in mg if not same(mg[k], me[k])]
 
 
 def profiled_iteration(trainer):
@@ -1452,20 +1489,15 @@ def train_graph_phase(logdir, smi, tasks=TRAIN_GRAPH,
 
     from cat_tpu_torch import train
     from cat_tpu_torch.ops import pgs
-    from cat_tpu_torch.rl import checkpoint
 
     phase = "train-graph"
     total = 0
-
-    def same(x, y):
-        return x == y or (math.isnan(x) and math.isnan(y))
-
     for task, agent in tasks:
         argv = train_argv(task, logdir, iters, "--agent", agent)
         sides = {"graphed": train.Trainer(train.parse_args(argv)),
+                 "steps": steps_trainer(train.Trainer(train.parse_args(argv))),
                  "eager": eager_trainer(train.Trainer(train.parse_args(argv)))}
         seconds = {side: [] for side in sides}
-        profiled = {}
         for it in range(1, iters + 1):
             metrics = {}
             for side, tr in sides.items():
@@ -1477,43 +1509,113 @@ def train_graph_phase(logdir, smi, tasks=TRAIN_GRAPH,
                     torch.cuda.synchronize()
                     seconds[side].append(time.perf_counter() - t0)
                 else:
-                    metrics[side], *profiled[side] = profiled_iteration(tr)
+                    metrics[side], s, calls, kernels, busy = (
+                        profiled_iteration(tr))
+                    log(phase, f"{task} {side}, profiled iteration {it}: "
+                               f"{s:.4f} s, host calls "
+                               f"{sum(calls.values())} "
+                               f"{dict(sorted(calls.items()))}, {kernels} "
+                               f"card events, busy {busy:.4f} s, idle "
+                               f"{100 * (1 - busy / s):.1f}% ({smi})")
+                    seconds[side].append(s)
                 total += check_launches(f"{phase} {task} {side} it {it}",
                                         pgs.KERNEL, 24 * env_decimation())
-            g, e = sides["graphed"], sides["eager"]
-            differ = checkpoint.mismatches(
-                checkpoint.state_dict(g.ppo, g.es, g.generators),
-                checkpoint.state_dict(e.ppo, e.es, e.generators))
-            differ += [k for k in metrics["graphed"]
-                       if not same(metrics["graphed"][k], metrics["eager"][k])]
-            log(phase, f"{task} ({agent}) iteration {it}: graphed vs eager, "
-                       f"leaves of the checkpoint's tree (env state, "
-                       f"learner, Adam, generators) and metrics that differ "
-                       f"in any bit: {differ or 'none'}")
-            if differ:
-                raise RuntimeError("the graphed iteration is not the eager "
-                                   "one bit for bit")
-        graphs = (len(g.env.graphs), len(g.ppo.graphs))
-        if graphs != (1, 2):
-            raise RuntimeError(f"graphs (env, learner) {graphs}, not (1, 2)")
-        steady = {side: float(np.median(s[1:])) for side, s in seconds.items()}
+            g, st, e = sides["graphed"], sides["steps"], sides["eager"]
+            for side in ("graphed", "steps"):
+                differ = trainer_differences(sides[side], e, metrics[side],
+                                             metrics["eager"])
+                log(phase, f"{task} ({agent}) iteration {it}: {side} vs "
+                           f"eager, leaves of the checkpoint's tree (env "
+                           f"state, learner, Adam, generators) and metrics "
+                           f"that differ in any bit: {differ or 'none'}; "
+                           f"learning rate "
+                           f"{metrics[side]['Train/learning_rate']!r}")
+                if differ:
+                    raise RuntimeError(f"the {side} iteration is not the "
+                                       f"eager one bit for bit")
+        kinds = sorted(k[0] for k in g.ppo.graphs)
+        if kinds != ["learn", "rollout"] or g.env.graphs:
+            raise RuntimeError(f"the graphed trainer's graphs: learner "
+                               f"{kinds}, env {len(g.env.graphs)}; not the "
+                               f"iteration's rollout and learn alone")
+        kinds = sorted({k[0] for k in st.ppo.graphs})
+        if kinds != ["draw", "sgd"] or not st.env.graphs:
+            raise RuntimeError(f"the steps trainer's graphs: learner "
+                               f"{kinds}, env {len(st.env.graphs)}; not the "
+                               f"draw's, the Adam step's and the env "
+                               f"step's")
+        # the graphed side's first iteration warms up, its second captures
+        steady = {side: float(np.median(x[2:-1]))
+                  for side, x in seconds.items()}
         for side in sides:
-            s, calls, kernels, busy = profiled[side]
             log(phase, f"{task} {side}: iteration seconds "
-                       f"{[round(x, 4) for x in seconds[side]]} (the first "
-                       f"graphed one warms up and captures), median of "
-                       f"iterations 2-{iters - 1} {steady[side]:.4f} s; "
-                       f"profiled iteration {iters}: {s:.4f} s, host calls "
-                       f"{dict(sorted(calls.items()))}, {kernels} card "
-                       f"events, busy {busy:.4f} s, idle "
-                       f"{100 * (1 - busy / s):.1f}% ({smi})")
-        log(phase, f"{task}: eager / graphed iteration "
-                   f"{steady['eager'] / steady['graphed']:.2f}x; host "
-                   f"calls an iteration "
-                   f"{sum(profiled['eager'][1].values())} -> "
-                   f"{sum(profiled['graphed'][1].values())}")
-        del sides, g, e
+                       f"{[round(x, 4) for x in seconds[side]]} (the last "
+                       f"profiled), median of iterations 3-{iters - 1} "
+                       f"{steady[side]:.4f} s ({smi})")
+        log(phase, f"{task}: eager / steps / graphed iteration "
+                   f"{steady['eager'] / steady['graphed']:.2f}x / "
+                   f"{steady['steps'] / steady['graphed']:.2f}x")
+        del sides, g, st, e
     return total
+
+
+def resume_phase(argv, ckpt, logged_lr) -> int:
+    """resume (module docstring): ``ckpt`` of the run of ``argv``, whose
+    last iteration logged ``logged_lr``; returns its pgs_bj launches."""
+    from cat_tpu_torch import train
+    from cat_tpu_torch.ops import pgs
+    from cat_tpu_torch.rl import checkpoint
+
+    phase = "resume"
+    fresh = train.Trainer(train.parse_args(argv))
+    fresh.restore(ckpt)
+    saved = checkpoint.load(ckpt)
+    differ = checkpoint.mismatches(
+        saved, checkpoint.state_dict(fresh.ppo, fresh.es, fresh.generators))
+    lr_saved = float(fresh.ppo.lr)
+    log(phase, f"{ckpt}: {os.path.getsize(ckpt) / 2**20:.1f} MiB, "
+               f"{len(checkpoint.flatten(saved))} leaves; {len(differ)} "
+               f"differ from the restored state {differ[:5]}; learning "
+               f"rate {lr_saved:.6g} restored, {logged_lr:.6g} "
+               f"logged at iteration {PPO_ITERS}")
+    if differ or lr_saved != logged_lr:
+        raise RuntimeError("the restored state is not the saved one")
+    # the graphed iteration from the restore (its warm-up, capture and a
+    # replay) against the same checkpoint restored into a trainer whose
+    # iteration runs op by op
+    eager = eager_trainer(train.Trainer(train.parse_args(argv)))
+    eager.restore(ckpt)
+    history, launches = [], 0
+    for it in range(PPO_ITERS + 1, PPO_ITERS + RESUME_ITERS + 1):
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics = fresh.train_iteration()
+        seconds = time.perf_counter() - t0
+        launches += check_launches(phase, pgs.KERNEL, 24 * env_decimation())
+        zero_counts()
+        ref = eager.train_iteration()
+        launches += check_launches(f"{phase} eager", pgs.KERNEL,
+                                   24 * env_decimation())
+        differ = trainer_differences(fresh, eager, metrics, ref)
+        log(phase, f"iteration {it} after the restore, graphed vs eager: "
+                   f"leaves and metrics that differ in any bit: "
+                   f"{differ or 'none'}; learning rate "
+                   f"{metrics['Train/learning_rate']!r}; graphed "
+                   f"{seconds:.4f} s")
+        if differ:
+            raise RuntimeError("the graphed iteration after a restore is "
+                               "not the eager one bit for bit")
+        history.append(dict(metrics, **{
+            "Perf/iter_seconds": seconds,
+            "Perf/env_steps_per_sec": 24 * N_ENVS / seconds}))
+    check_finite(phase, history)
+    kinds = sorted(k[0] for k in fresh.ppo.graphs)
+    if fresh.ppo.iteration != PPO_ITERS + RESUME_ITERS or kinds != [
+            "learn", "rollout"]:
+        raise RuntimeError(f"the resumed run did not go on from its "
+                           f"iteration through the iteration's graphs "
+                           f"({fresh.ppo.iteration}, {kinds})")
+    return launches
 
 
 def load_actor(path, dev):
@@ -1929,33 +2031,9 @@ def main() -> int:
         if len(lines) != PPO_ITERS or missing:
             raise RuntimeError("metrics.jsonl lacks lines or keys")
 
-        phase = "resume"
-        ckpt = os.path.join(run_dir, f"ckpt_{PPO_ITERS}.pt")
-        fresh = train.Trainer(train.parse_args(go2_argv))
-        fresh.restore(ckpt)
-        saved = checkpoint.load(ckpt)
-        differ = checkpoint.mismatches(
-            saved, checkpoint.state_dict(fresh.ppo, fresh.es, fresh.generators))
-        lr_saved = float(fresh.ppo.lr)
-        log(phase, f"{ckpt}: {os.path.getsize(ckpt) / 2**20:.1f} MiB, "
-                   f"{len(checkpoint.flatten(saved))} leaves; {len(differ)} "
-                   f"differ from the restored state {differ[:5]}; learning "
-                   f"rate {lr_saved:.6g} restored, {history[-1]['Train/learning_rate']:.6g} "
-                   f"logged at iteration {PPO_ITERS}")
-        if differ or lr_saved != history[-1]["Train/learning_rate"]:
-            raise RuntimeError("the restored state is not the saved one")
-        zero_counts()
-        t0 = time.perf_counter()
-        metrics = fresh.train_iteration()
-        metrics["Perf/iter_seconds"] = time.perf_counter() - t0
-        metrics["Perf/env_steps_per_sec"] = (
-            24 * N_ENVS / metrics["Perf/iter_seconds"])
-        bj["launches"] += check_launches(phase, pgs.KERNEL,
-                                         24 * env_decimation())
-        check_finite(phase, [metrics])
-        if fresh.ppo.iteration != PPO_ITERS + 1:
-            raise RuntimeError("the resumed run did not go on from its iteration")
-        del fresh
+        bj["launches"] += resume_phase(
+            go2_argv, os.path.join(run_dir, f"ckpt_{PPO_ITERS}.pt"),
+            history[-1]["Train/learning_rate"])
 
         phase = "play-run"
         zero_counts()

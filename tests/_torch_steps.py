@@ -3,16 +3,20 @@ JAX (tests/test_torch_capture.py on the CPU, tests/test_torch_graph.py on
 a card): Solo12 flat; Solo12 rough with the terrain curriculum, on a small
 grid; Go2 with the domain-randomization events (the CoM event on the base,
 a reset term and an interval term that draw from the env's generator).
-Each comes with the agent preset that exercises another learner variant."""
+Each comes with the agent preset that exercises another learner variant.
+``stand_in_graphs`` replays ``utils/graphs.py``'s graphs on the CPU."""
 
+import contextlib
 import dataclasses
 
 import torch
+from torch.utils import _pytree as pytree
 
 from cat_tpu_torch.envs.env import CatEnv, EventTerm
 from cat_tpu_torch.models.go2 import GO2_ACTUATED_JOINT_ORDER
 from cat_tpu_torch.rl import agent_cfgs
 from cat_tpu_torch.tasks import go2_flat, solo12_flat, solo12_rough
+from cat_tpu_torch.utils import graphs
 
 DR = ("events.com_displacement=0.05", "events.com_bodies=('base',)")
 
@@ -71,3 +75,33 @@ def minibatch(env, rows, gen):
     mb = [r(rows, env.num_obs), r(rows, env.num_actions), r(rows) - 17.0,
           r(rows), r(rows), r(rows)]
     return mb, torch.stack([mb[3].mean(), (mb[3] ** 2).mean()])
+
+
+def stand_in_graphs(monkeypatch) -> list:
+    """``graphs.Graph`` captured and replayed on the CPU: the capture runs
+    the body on static copies of the inputs; a replay copies the inputs
+    in, runs the body on those copies again and copies its outputs into
+    the captured ones, as a graph writes the same memory. Returns the list
+    each replay appends its graph to."""
+    replays = []
+
+    def capture(self, fn, inputs):
+        self.inputs = tuple(None if t is None else
+                            t.clone(memory_format=torch.contiguous_format)
+                            for t in inputs)
+        self.fn = fn
+        self.out, self.spec = pytree.tree_flatten(fn(*self.inputs))
+        self.launches = ()
+        self.graph = "stand-in"
+
+    def replay(self, inputs):
+        graphs._copy(*zip(*((buf, t) for buf, t in zip(self.inputs, inputs)
+                            if buf is not None)))
+        graphs._copy(self.out, pytree.tree_leaves(self.fn(*self.inputs)))
+        replays.append(self)
+
+    monkeypatch.setattr(graphs.Graph, "capture", capture)
+    monkeypatch.setattr(graphs.Graph, "replay", replay)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    return replays

@@ -480,3 +480,37 @@ def test_flat_spans_come_on_for_one_run_and_go():
     assert env.engine is engine
     assert "step" not in vars(env) and "sgd_step" not in vars(ppo)
     assert "forward" not in vars(ppo.net)
+
+
+def test_graphed_spans_come_on_for_one_run_and_go(monkeypatch):
+    """The graphed iteration's spans on the CPU, with ``utils/graphs.py``'s
+    graphs replayed by ``_torch_steps.stand_in_graphs``: after the
+    warm-up and the capture, a spanned iteration of the two replays
+    records ``ppo.rollout`` and ``ppo.learn``, marks the rollout's end
+    once after ``ppo.rollout``, calls no step span, and takes every
+    wrapper off after the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from _torch_steps import stand_in_graphs
+
+    replays = stand_in_graphs(monkeypatch)
+    spec = registry.get(bench.FLAT_TASK)
+    env = spec.make_env(4, device="cpu")
+    cfg = dataclasses.replace(spec.make_agent_cfg(), minibatch_size=16,
+                              num_steps=4)
+    gen = torch.Generator().manual_seed(0)
+    es = env.init(gen, 4)
+    ppo = PPO(env, cfg, torch.Generator().manual_seed(0))
+    ppo.start(env.observe(es, gen))
+    for _ in range(2):
+        es, _ = ppo.learn(*ppo.rollout(es, gen), gen)
+    syncs = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with bench.PpoSpans(env, ppo, mark_after=4,
+                            sync=lambda: syncs.append(1)) as spans:
+            ppo.learn(*ppo.rollout(es, gen), gen)
+    names = {e.name for e in prof.events()}
+    assert set(bench.PpoSpans.GRAPHED) <= names
+    assert not {"env.step", "ppo.sgd_step"} & names
+    assert len(spans.marks) == 1 and syncs == [1] and len(replays) == 2
+    assert not {"rollout", "learn", "step"} & (set(vars(ppo)) | set(vars(env)))

@@ -7,7 +7,8 @@ random states of both robots, within 2e-5 of the largest entry (the JAX
 terms are float32). Then the checks the bench builds on them must pass on
 the sound program and fail on a faulty one: the learner check on a tiny
 PPO whose Adam epsilon, learning rate, GAE lambda or minibatch draw is
-wrong; the control-step check on an engine whose base mass, armature or
+wrong, and its ``timed_path`` check on a graphed iteration whose replay
+is stale; the control-step check on an engine whose base mass, armature or
 centres of mass differ from the model the reference reads.
 """
 
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import _torch_port  # noqa: F401  (one torch thread per test worker)
+from _torch_steps import stand_in_graphs
 from cat_tpu.models.go2 import go2_model as jax_go2
 from cat_tpu.models.solo12 import solo12_model as jax_solo12
 from cat_tpu.sim import dynamics as jdyn
@@ -29,6 +31,7 @@ from cat_tpu_torch.models.go2 import go2_model
 from cat_tpu_torch.models.solo12 import solo12_model
 from cat_tpu_torch.rl import ppo as ppo_mod
 from cat_tpu_torch.tasks import registry
+from cat_tpu_torch.utils import graphs
 
 ROBOTS = {"solo12": (solo12_model, jax_solo12), "go2": (go2_model, jax_go2)}
 
@@ -112,6 +115,74 @@ def test_learner_check_passes_the_trainer_and_catches_faults(fault,
     assert cell.checks["learner"] == (fault == "none"), cell.counts
     if fault != "half_batch":     # that one stops at the minibatch rows
         assert cell.checks["learner_control"]
+
+
+def _stale_outputs(mp):
+    """A replay that copies its inputs in and runs nothing: its outputs,
+    the parameters and Adam's state stay as the capture left them (a
+    value baked in at capture)."""
+    mp.setattr(graphs.Graph, "replay", lambda self, inputs: None)
+
+
+def _unregistered_generator(mp):
+    """A replay that draws what its capture drew and leaves the generator
+    where it was, as a graph whose generator was not registered with it
+    (the minibatch permutations and the actions repeat)."""
+    capture, replay = graphs.Graph.capture, graphs.Graph.replay
+
+    def captured(self, fn, inputs):
+        self.drawn = [g.get_state() for g in self.generators]
+        capture(self, fn, inputs)
+
+    def replayed(self, inputs):
+        now = [g.get_state() for g in self.generators]
+        for g, state in zip(self.generators, self.drawn):
+            g.set_state(state)
+        replay(self, inputs)
+        for g, state in zip(self.generators, now):
+            g.set_state(state)
+
+    mp.setattr(graphs.Graph, "capture", captured)
+    mp.setattr(graphs.Graph, "replay", replayed)
+
+
+TIMED_PATH_FAULTS = {
+    "none": lambda mp: None,
+    "stale_outputs": _stale_outputs,
+    "unregistered_generator": _unregistered_generator,
+}
+
+
+@pytest.mark.parametrize("fault", TIMED_PATH_FAULTS)
+def test_timed_path_check_holds_the_graphed_iteration(fault, monkeypatch):
+    """The learner check on the iteration the card's window times, the
+    replays of ``PPO.rollout`` and ``PPO.learn``, here with the stand-in
+    graphs of ``_torch_steps.stand_in_graphs`` (a replay runs the body on
+    the graph's buffers again): after the warm-up and the capture, the
+    check's timed iteration is a replay. A replay at fault fails
+    ``timed_path`` and leaves the tape's check passing: the tape runs the
+    iteration launched from the host, from the same state."""
+    stand_in_graphs(monkeypatch)
+    spec = registry.get(bench.FLAT_TASK)
+    env = spec.make_env(4, device="cpu")
+    cfg = dataclasses.replace(spec.make_agent_cfg(), minibatch_size=16)
+    gen = torch.Generator().manual_seed(0)
+    es = env.init(gen, 4)
+    ppo = ppo_mod.PPO(env, cfg, torch.Generator().manual_seed(0))
+    ppo.start(env.observe(es, gen))
+    if fault == "unregistered_generator":
+        TIMED_PATH_FAULTS[fault](monkeypatch)
+    monkeypatch.setattr(ppo, "train_iteration",
+                        lambda es, gen: ppo.learn(*ppo.rollout(es, gen), gen))
+    for _ in range(2):      # the warm-up, the capture
+        es, _ = ppo.train_iteration(es, gen)
+    if fault == "stale_outputs":
+        TIMED_PATH_FAULTS[fault](monkeypatch)
+    cell = bench.Cell("test", "cpu", ())
+    bench.learner_check(cell, env, ppo, es, gen)
+    assert cell.checks["timed_path"] == (fault == "none")
+    assert cell.checks["learner"] and ppo.iteration == 3
+    assert sorted(k[0] for k in ppo.graphs) == ["learn", "rollout"]
 
 
 ENGINE_FAULTS = {

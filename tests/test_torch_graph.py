@@ -17,11 +17,19 @@ flat, rough with the terrain curriculum, Go2 with the DR events; every
 EnvState field and output, and the generator's state), with the bench's
 spanned engine too, for the rollout's draw, and for the Adam step under
 the linear and adaptive-KL rates (parameters, gradients, Adam's moments
-and step counts, the rate). The file imports no JAX, so on a machine with
-a card:
+and step counts, the rate). And for the whole PPO iteration, the replays
+of its two graphs (``PPO.rollout``, ``PPO.learn``) against the iteration
+launched from the host with the three steps op by op (as chip_smoke.py's
+``eager_trainer`` runs it), on the three configurations with their
+presets (the linear rate, skrl's per-epoch and rl_games' per-minibatch
+adaptive rates): every leaf of the checkpoint's tree and every metric,
+bit for bit, over 4 iterations, and across a save and a restore in
+mid-run. The file imports no JAX, so on a machine with a card:
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_graph.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,7 +42,7 @@ from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
 from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
 from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP, solo12_model
 from cat_tpu_torch.ops import pgs, substep
-from cat_tpu_torch.rl import agent_cfgs
+from cat_tpu_torch.rl import agent_cfgs, checkpoint
 from cat_tpu_torch.rl.normalize import RmsState
 from cat_tpu_torch.rl.ppo import PPO, PpoCfg
 from cat_tpu_torch.sim import engine, terrain
@@ -414,3 +422,96 @@ def test_sgd_step_graph_equals_eager_bit_for_bit(cuda, mode):
         assert _differ(_learner_state(graphed),
                        _learner_state(eager)) == [], f"Adam step {k}"
     assert len(graphed.graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# the whole PPO iteration on the card: two graphs against op by op
+# ---------------------------------------------------------------------------
+
+ITERS = 4
+
+
+def _trainers(name, dev):
+    """The env of configuration ``name`` at N_STEP envs and two learners
+    on it from one seed, each (ppo, generator, env state): the first runs
+    its iteration as it does, the second launched from the host with the
+    draw, env step and Adam step op by op (chip_smoke.py
+    ``eager_trainer``). 4 minibatches of 1,536 rows an epoch."""
+    make_env, make_cfg = ENVS[name]
+    env = make_env(N_STEP, dev)
+    cfg = dataclasses.replace(make_cfg(N_STEP), minibatch_size=N_STEP * 6)
+    out = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        es = env.init(gen, N_STEP)
+        ppo = PPO(env, cfg, torch.Generator().manual_seed(1))
+        ppo.start(env.observe(es, gen))
+        out.append([ppo, gen, es])
+    e = out[1][0]
+    e.train_iteration = e._train_iteration_eager
+    e.draw, e.sgd_step = e._draw_eager, e._sgd_step_eager
+    env.step = env._step_eager     # the graphed bodies call it by name
+    return env, out
+
+
+def _iterate(env, sides, k):
+    """Iteration ``k`` on both sides; each kernel of the path launches
+    once a substep on each. Returns the two metrics dicts."""
+    path = [kernel for name_, kernel in substep.KERNELS if name_ != "pgs_gs"]
+    metrics = []
+    for side in sides:
+        before = [kernel.launches for kernel in path]
+        side[2], m = side[0].train_iteration(side[2], side[1])
+        torch.cuda.synchronize()
+        assert [kernel.launches - n for kernel, n in zip(path, before)] == [
+            env.cfg.decimation * side[0].cfg.num_steps] * len(path), k
+        metrics.append(m)
+    return metrics
+
+
+def _trainer_differ(sides, metrics) -> list:
+    (g, gen_g, es_g), (e, gen_e, es_e) = sides
+    return checkpoint.mismatches(
+        checkpoint.state_dict(g, es_g, {"ppo": gen_g}),
+        checkpoint.state_dict(e, es_e, {"ppo": gen_e})) + _differ(*metrics)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ENVS))
+def test_iteration_graphs_equal_eager_bit_for_bit(cuda, name):
+    """ITERS iterations (the warm-up, the capture, replays): after each,
+    every checkpoint leaf (env state, learner, Adam, generator) and every
+    metric equal bit for bit; the graphed learner holds the iteration's
+    two graphs and the env none."""
+    env, sides = _trainers(name, cuda)
+    rates = []
+    for k in range(ITERS):
+        metrics = _iterate(env, sides, k)
+        assert _trainer_differ(sides, metrics) == [], f"iteration {k + 1}"
+        rates.append(float(metrics[0]["Train/learning_rate"]))
+    g, e = sides[0][0], sides[1][0]
+    assert sorted(key[0] for key in g.graphs) == ["learn", "rollout"]
+    assert env.graphs == {} and e.graphs == {}
+    if g.cfg.resolved_lr_mode == "linear":
+        assert len(set(rates)) == ITERS
+
+
+@pytest.mark.gpu
+def test_iteration_graphs_across_a_restore(cuda, tmp_path):
+    """Flat: 2 iterations, the graphed learner's checkpoint restored into
+    both learners, ITERS - 1 more (the graphed one re-keys ``learn``:
+    Adam's state is new), each equal bit for bit."""
+    env, sides = _trainers("flat", cuda)
+    for k in range(ITERS + 1):
+        if k == 2:
+            g, gen_g, es_g = sides[0]
+            path = checkpoint.save(str(tmp_path / "ckpt_2"), g, es_g,
+                                   {"ppo": gen_g})
+            for side in sides:
+                side[2] = checkpoint.restore(path, side[0], side[2],
+                                             {"ppo": side[1]})
+            assert int(g.device_iteration) == 2
+        metrics = _iterate(env, sides, k)
+        assert _trainer_differ(sides, metrics) == [], f"iteration {k + 1}"
+    assert sorted(key[0] for key in sides[0][0].graphs) == [
+        "learn", "learn", "rollout"]
