@@ -21,11 +21,23 @@ full (N, ...) tensors; resets are masked selects, so the step never waits
 on the device and copies nothing from the host. On a CUDA device the whole
 step, the physics control step inside it, replays a CUDA graph
 (``utils/graphs.py``); ``_step_eager`` is the step it captures.
+
+Around the physics the step runs three stages (``ops/env_step.py``), each
+a CUDA kernel on the card and its plain version here on the CPU:
+``terms_stage`` (3-5: the counters, the terminations, the raw constraint
+columns and their maxima over envs), ``update_stage`` (5-8: the CaT
+transform, the reward and dones, the accumulators, the curriculum and
+masked reset, the commands and the push) and ``obs_stage`` (9). The draws
+a stage reads are made before it, with the same ``torch.rand`` calls in
+the same order as ever (``_update_draws``, ``_obs_draws``). Reset event
+terms split ``update_stage`` in two: its "reset" part (through the masked
+reset), the terms, then its "commands" part (the commands and the push).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -33,6 +45,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from cat_tpu_torch.ops import env_step
+from cat_tpu_torch.ops.env_step import ObsDraws, Terms, UpdateDraws, Updated
 from cat_tpu_torch.sim import engine as engine_mod
 from cat_tpu_torch.sim import terrain as terrain_mod
 from cat_tpu_torch.sim.engine import EngineParams, SimState
@@ -213,6 +227,13 @@ def engine_params(cfg: EnvCfg) -> EngineParams:
 
 
 class CatEnv:
+    # the observation's scales: the base's angular velocity, the command
+    # (x, y, yaw rate), the projected gravity, the joints' velocities
+    ang_vel_scale = 0.25
+    command_scale = (2.0, 2.0, 0.25)
+    gravity_scale = 0.1
+    joint_vel_scale = 0.05
+
     def __init__(self, model: RobotModel, cfg: EnvCfg,
                  constraint_terms: Sequence[ConstraintTerm],
                  actuated_joint_order: Sequence[str],
@@ -247,10 +268,11 @@ class CatEnv:
             [c.lin_vel_x[0], c.lin_vel_y[0], c.ang_vel_z[0]], device=dev)
         self._cmd_hi = torch.tensor(
             [c.lin_vel_x[1], c.lin_vel_y[1], c.ang_vel_z[1]], device=dev)
-        self._cmd_scale = torch.tensor([2.0, 2.0, 0.25], device=dev)
+        self._cmd_scale = torch.tensor(self.command_scale, device=dev)
         self._gravity_dir = torch.tensor([0.0, 0.0, -1.0], device=dev)
         self._reset_templates = {}     # n -> SimState (``_reset_sim``)
         self.graphs = {}               # _graph_key -> utils.graphs.Graph
+        self.kernel_tables = {}        # device -> ops/env_step.py's tables
         self.cset = ConstraintSet(constraint_terms, self._probe_data(2), dev)
         self.num_obs = 9 + 3 * self.num_actions  # 45 for Solo12
         if cfg.height_scan is not None:
@@ -373,7 +395,10 @@ class CatEnv:
 
     def _sample_commands(self, gen, n: int) -> torch.Tensor:
         """Uniform command sample; a rel_standing_envs share stands still."""
-        u = self._rand(gen, n, 4)
+        return self._commands_from(self._rand(gen, n, 4))
+
+    def _commands_from(self, u: torch.Tensor) -> torch.Tensor:
+        """``_sample_commands`` from its draw u (N, 4)."""
         cmd = self._cmd_lo + (self._cmd_hi - self._cmd_lo) * u[:, :3]
         standing = u[:, 3] < self.cfg.commands.rel_standing_envs
         return torch.where(standing[:, None], 0.0, cmd)
@@ -392,8 +417,13 @@ class CatEnv:
         default * U(scale), zero velocity, default height above the
         terrain there. Every field but qpos is the reset template's own
         tensor (``_reset_template``)."""
+        return self._reset_sim_from(self._rand(gen, n, 3 + self.model.nj),
+                                    origin)
+
+    def _reset_sim_from(self, u: torch.Tensor, origin: torch.Tensor) -> SimState:
+        """``_reset_sim`` from its draw u (N, 3 + nj)."""
+        n = u.shape[0]
         ev = self.cfg.events
-        u = self._rand(gen, n, 3 + self.model.nj)
         xy = origin + (2.0 * u[:, 0:2] - 1.0) * ev.reset_pose_xy
         yaw = (2.0 * u[:, 2] - 1.0) * ev.reset_yaw
         zero = torch.zeros_like(yaw)
@@ -417,9 +447,9 @@ class CatEnv:
 
     def observe(self, state: EnvState, gen: torch.Generator) -> torch.Tensor:
         """Observation of the current state (the reset observation)."""
-        data = self.step_data(state.sim, state.command, state.action,
-                              state.prev_action)
-        return self._observations(data, gen)
+        draws = self._obs_draws(gen, state.action.shape[0])
+        return env_step.env_obs(self, state.sim, state.command, state.action,
+                                draws)
 
     # ---------------- the step ----------------
 
@@ -454,9 +484,13 @@ class CatEnv:
     def _step_eager(self, state: EnvState, raw_action: torch.Tensor,
                     gen: torch.Generator):
         """The env step launched op by op from the host: what the CUDA
-        graph captures."""
+        graph captures. ``ops/env_step.py`` dispatches its three stages on
+        the tensors' device."""
         cfg = self.cfg
         n = raw_action.shape[0]
+        terms_fn, update_fn, obs_fn = (
+            functools.partial(f, self) for f in (
+                env_step.env_terms, env_step.env_update, env_step.env_obs))
 
         # 1-2. actions -> PD targets (task order -> model order), physics
         prev_action, action = state.action, raw_action
@@ -465,6 +499,96 @@ class CatEnv:
         sim = self.engine(state.sim, target, state.mu,
                           state.com_offset if cfg.events.com_displacement > 0.0
                           else None)
+
+        # 3-5. counters, terminations, raw constraint columns
+        terms = terms_fn(state, sim, action, prev_action)
+
+        # 5-8. CaT, reward, accumulators, curriculum, masked reset (then the
+        # reset event terms), commands, push
+        reset_terms = [t for t in cfg.events.extra_terms if t.mode == "reset"]
+        u_reset = self._rand(gen, n, 3 + self.model.nj)
+        if reset_terms:
+            up = update_fn(state, sim, action, prev_action, terms,
+                           UpdateDraws(u_reset), part="reset")
+            sim = up.sim
+            reset = terms.illegal | terms.upside | terms.time_out
+            for t in reset_terms:
+                sim = t.func(gen, sim, reset, self.model, **(t.params or {}))
+            cmd = update_fn(state, sim, action, prev_action, terms,
+                            self._update_draws(gen, n, u_reset),
+                            part="commands")
+            up = up._replace(sim=cmd.sim, command=cmd.command,
+                             command_time_left=cmd.command_time_left)
+        else:
+            up = update_fn(state, sim, action, prev_action, terms,
+                           self._update_draws(gen, n, u_reset))
+        sim = up.sim
+        for t in cfg.events.extra_terms:
+            if t.mode == "interval":
+                sim = t.func(gen, sim, state, cfg, **(t.params or {}))
+
+        # 9. observations
+        obs = obs_fn(sim, up.command, up.action, self._obs_draws(gen, n))
+
+        new_state = EnvState(
+            sim=sim, action=up.action, prev_action=up.prev_action,
+            episode_len=up.episode_len, command=up.command,
+            command_time_left=up.command_time_left, mu=state.mu,
+            com_offset=state.com_offset,
+            running_max=up.running_max, max_p=up.max_p,
+            episode_viol=up.episode_viol, episode_prob=up.episode_prob,
+            episode_rew=up.episode_rew, origin=up.origin,
+            terrain_row=up.terrain_row, terrain_col=state.terrain_col,
+            common_step=terms.common_step,
+            acc_viol=up.acc_viol, acc_prob=up.acc_prob, acc_rew=up.acc_rew,
+            acc_len=up.acc_len, acc_count=up.acc_count, acc_term=up.acc_term,
+        )
+        return new_state, obs, up.reward, up.dones, terms.time_out
+
+    # ---------------- the draws ----------------
+
+    def _update_draws(self, gen, n: int, u_reset: torch.Tensor) -> UpdateDraws:
+        """The draws of ``update_stage`` after the reset's ``u_reset``, in
+        the step's order: the reset envs' commands, the scheduled and the
+        stochastic resample's, the yaw flip's, the push's."""
+        draws = dict(reset=u_reset,
+                     reset_command=self._rand(gen, n, 4),
+                     expired_command=self._rand(gen, n, 4),
+                     resample=self._rand(gen, n),
+                     resample_command=self._rand(gen, n, 4),
+                     flip=self._rand(gen, n))
+        ev = self.cfg.events
+        if ev.push_enabled:
+            draws.update(push=self._rand(gen, n),
+                         push_vel=self._uniform(gen, (n, 2), -ev.push_vel_xy,
+                                                ev.push_vel_xy))
+        return UpdateDraws(**draws)
+
+    def _obs_draws(self, gen, n: int) -> ObsDraws:
+        """The observation noise, in its columns' order: each part's
+        U(-mag, mag) (``_uniform``), None where a part has none."""
+        nz, nj = self.cfg.noise, self.num_actions
+        hs = self.cfg.height_scan
+
+        def draw(mag, width):
+            if not nz.enabled or mag == 0.0:
+                return None
+            return self._uniform(gen, (n, width), -mag, mag)
+
+        return ObsDraws(
+            draw(nz.ang_vel, 3), draw(nz.gravity, 3), draw(nz.joint_pos, nj),
+            draw(nz.joint_vel, nj),
+            draw(hs.noise, hs.num_points) if hs is not None else None)
+
+    # ---------------- the stages' plain versions ----------------
+
+    def terms_stage(self, state: EnvState, sim: SimState, action,
+                    prev_action) -> Terms:
+        """Steps 3-5 up to the CaT transform: the counters, the
+        terminations, the raw constraint columns and their maxima over
+        envs (the plain version of ``ops/env_step.py`` ``env_terms``)."""
+        cfg = self.cfg
+        n = action.shape[0]
 
         # 3. counters
         episode_len = state.episode_len + 1
@@ -479,13 +603,71 @@ class CatEnv:
                             > cfg.terminations.contact_threshold, dim=1)
         upside = (torch.linalg.vector_norm(data.projected_gravity[:, :2], dim=1)
                   > cfg.terminations.upside_down_limit)
+
+        # 5. the raw constraint columns
+        raw = self.cset.raw(data)
+        return Terms(episode_len, common_step, time_out, illegal, upside, raw,
+                     self.cset.column_max(raw))
+
+    def update_stage(self, state: EnvState, sim: SimState, action,
+                     prev_action, terms: Terms, draws: UpdateDraws,
+                     part: str = "all") -> Updated:
+        """Steps 5-8 from ``terms``: the CaT transform, the reward and
+        dones, the finished-episode accumulators, the terrain curriculum
+        and the masked reset ("reset"), then the commands and the push
+        ("commands"); "all" is both (the plain version of
+        ``ops/env_step.py`` ``env_update``). The "commands" part reads the
+        state as the reset event terms left it (``sim``) and fills only
+        ``sim``, ``command`` and ``command_time_left``."""
+        cfg = self.cfg
+        reset = terms.illegal | terms.upside | terms.time_out
+        if part == "commands":
+            out = dict.fromkeys(Updated._fields)
+        else:
+            out = self._update_reset(state, sim, action, prev_action, terms,
+                                     draws.reset)
+            sim = out["sim"]
+        if part == "reset":
+            return Updated(**out)
+
+        command = torch.where(reset[:, None],
+                              self._commands_from(draws.reset_command),
+                              state.command)
+        time_left = torch.where(reset, cfg.commands.resampling_time,
+                                state.command_time_left)
+
+        # 7. command schedule + deadzone logic
+        command, time_left = self._update_commands(command, time_left, draws)
+
+        # 8. interval push: overwrite the whole root velocity
+        if cfg.events.push_enabled:
+            p_push = cfg.sim_dt / (cfg.episode_length_s * 2.0)
+            push = draws.push < p_push
+            new_qvel = torch.cat([draws.push_vel,
+                                  torch.zeros_like(sim.qvel[:, 2:6]),
+                                  sim.qvel[:, 6:]], dim=1)
+            sim = sim._replace(
+                qvel=torch.where(push[:, None], new_qvel, sim.qvel))
+        out.update(sim=sim, command=command, command_time_left=time_left)
+        return Updated(**out)
+
+    def _update_reset(self, state, sim, action, prev_action, terms,
+                      u_reset) -> dict:
+        """``update_stage``'s "reset" part, as a dict of ``Updated``'s
+        fields."""
+        cfg = self.cfg
+        n = action.shape[0]
+        episode_len = terms.episode_len
+        illegal, upside, time_out = terms.illegal, terms.upside, terms.time_out
         terminated = illegal | upside
         reset = terminated | time_out
+        data = self.step_data(sim, state.command, action, prev_action)
 
         # 5. CaT constraints + reward
-        max_p = self.cset.curriculum_max_p(common_step, cfg.curriculum_steps)
-        cstr_prob, running_max, term_probs, viol = self.cset.compute(
-            data, state.running_max, max_p)
+        max_p = self.cset.curriculum_max_p(terms.common_step,
+                                           cfg.curriculum_steps)
+        cstr_prob, running_max, term_probs, viol = self.cset.transform(
+            terms.raw, terms.col_max, state.running_max, max_p)
         rw = cfg.rewards
         lin_err = torch.sum(
             torch.square(data.command[:, :2] - data.base_lin_vel_b[:, :2]), dim=1)
@@ -535,68 +717,33 @@ class CatEnv:
                                  self._patch_origins(trow, state.terrain_col),
                                  origin)
 
-        fresh = self._reset_sim(gen, n, origin)
+        fresh = self._reset_sim_from(u_reset, origin)
         sim = SimState(*[
             torch.where(reset.reshape((n,) + (1,) * (old.dim() - 1)), new, old)
             for new, old in zip(fresh, sim)
         ])
-        for t in cfg.events.extra_terms:
-            if t.mode == "reset":
-                sim = t.func(gen, sim, reset, self.model, **(t.params or {}))
-        episode_len = torch.where(reset, 0, episode_len).to(torch.int32)
-        episode_viol = torch.where(reset[:, None], 0.0, episode_viol)
-        episode_prob = torch.where(reset[:, None], 0.0, episode_prob)
-        episode_rew = torch.where(reset, 0.0, episode_rew)
-        action = torch.where(reset[:, None], 0.0, action)
-        prev_action = torch.where(reset[:, None], 0.0, prev_action)
-        command = torch.where(reset[:, None], self._sample_commands(gen, n),
-                              state.command)
-        time_left = torch.where(reset, cfg.commands.resampling_time,
-                                state.command_time_left)
-
-        # 7. command schedule + deadzone logic
-        command, time_left = self._update_commands(command, time_left, gen)
-
-        # 8. interval push: overwrite the whole root velocity
-        if cfg.events.push_enabled:
-            p_push = cfg.sim_dt / (cfg.episode_length_s * 2.0)
-            push = self._rand(gen, n) < p_push
-            push_vel = self._uniform(gen, (n, 2), -cfg.events.push_vel_xy,
-                                     cfg.events.push_vel_xy)
-            new_qvel = torch.cat([push_vel, torch.zeros_like(sim.qvel[:, 2:6]),
-                                  sim.qvel[:, 6:]], dim=1)
-            sim = sim._replace(
-                qvel=torch.where(push[:, None], new_qvel, sim.qvel))
-        for t in cfg.events.extra_terms:
-            if t.mode == "interval":
-                sim = t.func(gen, sim, state, cfg, **(t.params or {}))
-
-        # 9. observations
-        data = self.step_data(sim, command, action, prev_action)
-        obs = self._observations(data, gen)
-
-        new_state = EnvState(
-            sim=sim, action=action, prev_action=prev_action,
-            episode_len=episode_len, command=command,
-            command_time_left=time_left, mu=state.mu,
-            com_offset=state.com_offset,
+        return dict(
+            sim=sim, reward=reward, dones=dones,
             running_max=running_max, max_p=max_p,
-            episode_viol=episode_viol, episode_prob=episode_prob,
-            episode_rew=episode_rew, origin=origin, terrain_row=trow,
-            terrain_col=state.terrain_col, common_step=common_step,
+            episode_len=torch.where(reset, 0, episode_len).to(torch.int32),
+            episode_viol=torch.where(reset[:, None], 0.0, episode_viol),
+            episode_prob=torch.where(reset[:, None], 0.0, episode_prob),
+            episode_rew=torch.where(reset, 0.0, episode_rew),
+            action=torch.where(reset[:, None], 0.0, action),
+            prev_action=torch.where(reset[:, None], 0.0, prev_action),
+            origin=origin, terrain_row=trow,
             acc_viol=acc_viol, acc_prob=acc_prob, acc_rew=acc_rew,
             acc_len=acc_len, acc_count=acc_count, acc_term=acc_term,
-        )
-        return new_state, obs, reward, dones, time_out
+            command=None, command_time_left=None)
 
-    def _update_commands(self, command, time_left, gen):
+    def _update_commands(self, command, time_left, draws: UpdateDraws):
         """Scheduled resample, deadzone zeroing, stochastic resample and
         yaw-rate flip; the stochastic rates use the PHYSICS dt."""
         c, cfg = self.cfg.commands, self.cfg
-        n = command.shape[0]
         time_left = time_left - cfg.step_dt
         expired = time_left <= 0.0
-        command = torch.where(expired[:, None], self._sample_commands(gen, n),
+        command = torch.where(expired[:, None],
+                              self._commands_from(draws.expired_command),
                               command)
         time_left = torch.where(expired, c.resampling_time, time_left)
 
@@ -606,46 +753,55 @@ class CatEnv:
         no_cmd = (torch.linalg.vector_norm(command, dim=1)
                   < c.velocity_deadzone).float()
         p_res = 0.01 * no_cmd + (cfg.sim_dt / cfg.episode_length_s) * (1 - no_cmd)
-        resample = self._rand(gen, n) < p_res
-        command = torch.where(resample[:, None], self._sample_commands(gen, n),
+        resample = draws.resample < p_res
+        command = torch.where(resample[:, None],
+                              self._commands_from(draws.resample_command),
                               command)
         time_left = torch.where(resample, c.resampling_time, time_left)
 
-        flip = self._rand(gen, n) < cfg.sim_dt / cfg.episode_length_s
+        flip = draws.flip < cfg.sim_dt / cfg.episode_length_s
         command = torch.cat([command[:, :2],
                              command[:, 2:] * (1.0 - 2.0 * flip.float())[:, None]],
                             dim=1)
         return command, time_left
 
-    def _observations(self, data: StepData, gen) -> torch.Tensor:
-        nz = self.cfg.noise
+    def obs_stage(self, sim: SimState, command, action,
+                  draws: ObsDraws) -> torch.Tensor:
+        """Step 9: the observation (the plain version of
+        ``ops/env_step.py`` ``env_obs``)."""
+        return self._observations(self.step_data(sim, command, action, None),
+                                  draws)
 
-        def noise(x, mag):
-            if not nz.enabled or mag == 0.0:
-                return x
-            return x + self._uniform(gen, x.shape, -mag, mag)
+    def _observations(self, data: StepData, draws: ObsDraws) -> torch.Tensor:
+        def noise(x, z):
+            return x if z is None else x + z
 
         parts = [
-            noise(data.base_ang_vel_b, nz.ang_vel) * 0.25,
+            noise(data.base_ang_vel_b, draws.ang_vel) * self.ang_vel_scale,
             data.command * self._cmd_scale,
-            noise(data.projected_gravity, nz.gravity) * 0.1,
-            noise(data.joint_pos, nz.joint_pos),
-            noise(data.joint_vel, nz.joint_vel) * 0.05,
+            noise(data.projected_gravity, draws.gravity) * self.gravity_scale,
+            noise(data.joint_pos, draws.joint_pos),
+            noise(data.joint_vel, draws.joint_vel) * self.joint_vel_scale,
             data.action,
         ]
         hs = self.cfg.height_scan
         if hs is not None:
-            # the scan grid turned by the base yaw, around the base
-            cy, sy = torch.cos(data.base_yaw), torch.sin(data.base_yaw)
-            gx, gy = self._scan_grid[:, 0], self._scan_grid[:, 1]
-            px = data.base_pos[:, 0:1] + cy[:, None] * gx - sy[:, None] * gy
-            py = data.base_pos[:, 1:2] + sy[:, None] * gx + cy[:, None] * gy
-            h = terrain_mod.height_at(self.cfg.terrain,
-                                      torch.stack([px, py], dim=-1))
+            h = terrain_mod.height_at(
+                self.cfg.terrain, self.scan_points(data.base_pos,
+                                                   data.base_yaw))
             scan = torch.clamp(data.base_pos[:, 2:3] - hs.offset_z - h,
                                -hs.clip, hs.clip)
-            parts.append(noise(scan, hs.noise))
+            parts.append(noise(scan, draws.scan))
         return torch.cat(parts, dim=1)
+
+    def scan_points(self, base_pos, base_yaw) -> torch.Tensor:
+        """(N, points, 2) world xy of the height scan: its grid turned by
+        the base's yaw, around the base."""
+        cy, sy = torch.cos(base_yaw), torch.sin(base_yaw)
+        gx, gy = self._scan_grid[:, 0], self._scan_grid[:, 1]
+        px = base_pos[:, 0:1] + cy[:, None] * gx - sy[:, None] * gy
+        py = base_pos[:, 1:2] + sy[:, None] * gx + cy[:, None] * gy
+        return torch.stack([px, py], dim=-1)
 
     # ---------------- metrics ----------------
 

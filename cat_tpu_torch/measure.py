@@ -8,6 +8,8 @@ Shared by ``cat_tpu_torch.bench`` and ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import subprocess
 from typing import NamedTuple
 
@@ -49,8 +51,10 @@ def graph_ms(fn, reps: int) -> float:
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    from cat_tpu_torch.utils.graphs import no_collection
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -557,3 +561,314 @@ def post_counts(model, n, frames, lam):
              + n * (3 * nc + 3 * (nct + 2 * npair) + nv + 120 + 4 * nj
                     + 12 * nf))
     return byts, flops
+
+
+# The env step's three kernels (ops/env_step.py) against their plain
+# stages on the same inputs (compare_env). Each kernel runs the plain
+# stage's operations in its order with one rounding each (-fmad=false);
+# what is left is PyTorch's own kernels contracting or reordering inside
+# one operation (a 3-vector norm's sum of squares, the cross products of a
+# rotation) and the library's exp, atan2, sin and cos: an output entry
+# within ENV_SPACINGS float32 spacings of its column's largest magnitude
+# (a norm minus a limit carries the norm's rounding, of the size of the
+# column). The accumulators sum each env's share in another order than
+# the plain stage's reductions: every share is >= 0, so their relative
+# error is at most (N - 1) unit roundoffs, ENV_ACC_RTOL at N = 4096. A
+# decision (a flag, a binary column, a gate, a curriculum row) may come
+# out otherwise only in an env with a deciding quantity within
+# ENV_FLIP_SPACINGS float32 spacings of its limit (env_margins); that
+# env's entries are then left out of the tolerance and listed as flips.
+ENV_SPACINGS = 8
+ENV_ACC_RTOL = 4096 * 2.0 ** -24
+ENV_FLIP_SPACINGS = 4
+
+
+def _norm(x):
+    return torch.sqrt((x.double() ** 2).sum(-1))
+
+
+def env_margins(env, state, sim, action, prev_action, command=None):
+    """(N,) float64: each env's smallest distance, in float32 spacings of
+    the limit, of a quantity a step's decision compares with its limit,
+    read from the plain side's inputs: each report slot's force norm
+    against 1 N and the contact threshold, the tilt |g_xy| and g_z
+    against the upside-down limits, the command's norms against the terms'
+    and the commands' deadzones, and on the terrain curriculum the walked
+    distance against a half and a quarter of the commanded one.
+    ``command``: the command the commands' deadzone reads (default the
+    state's)."""
+    cfg, cset = env.cfg, env.cset
+    n = action.shape[0]
+    data = env.step_data(sim, state.command, action, prev_action)
+    hist = sim.force_hist.reshape(n, 3, env.model.nreport, 3)
+    norms = torch.amax(torch.linalg.vector_norm(hist.double(), dim=-1), dim=1)
+
+    def lim(x, limit):
+        return _spacings(x, torch.full_like(x, float(limit))).reshape(n, -1)
+
+    g = data.projected_gravity.double()
+    cmd = state.command.double()
+    m = [lim(norms, 1.0), lim(norms, cfg.terminations.contact_threshold),
+         lim(_norm(g[:, :2]), cfg.terminations.upside_down_limit),
+         lim(g[:, 2], 0.0), lim(cmd[:, 1].abs(), cfg.commands.velocity_deadzone),
+         lim(_norm(cmd), cfg.commands.velocity_deadzone)]
+    for row, vals in zip(cset.descriptors.ints, cset.descriptors.floats):
+        for v in vals:
+            if v != 0.0:
+                m += [lim(_norm(cmd), v), lim(g[:, 2], v),
+                      lim(_norm(g[:, :2]), v)]
+    if command is not None:
+        m.append(lim(_norm(command.double()), cfg.commands.velocity_deadzone))
+    if cfg.terrain_curriculum and cfg.terrain.kind == "hfield":
+        dist = _norm(sim.qpos[:, :2].double() - state.origin.double())
+        required = _norm(cmd[:, :2]) * cfg.episode_length_s
+        for share in (0.5, 0.25):
+            r = (share * required).float()
+            m.append(_spacings(dist, r).reshape(n, 1))
+    return torch.cat(m, dim=1).amin(dim=1)
+
+
+class EnvComparison(NamedTuple):
+    """What ``compare_env`` found: the max abs error of each output over
+    the entries compared, the outputs with entries outside the tolerance
+    (name -> how many), the flips (output, env, margin in spacings), the
+    envs near a limit, and a line that says so."""
+    errors: dict
+    outside: dict
+    flips: list
+    near: int
+    text: str
+
+    @property
+    def ok(self) -> bool:
+        return not self.outside and all(
+            margin <= ENV_FLIP_SPACINGS for *_, margin in self.flips)
+
+
+def _fields(x, prefix=""):
+    """name -> tensor of a NamedTuple of tensors (nested: ``sim.qpos``)."""
+    out = {}
+    for k, v in x._asdict().items():
+        if isinstance(v, tuple):
+            out.update(_fields(v, f"{prefix}{k}."))
+        elif v is not None:
+            out[prefix + k] = v
+    return out
+
+
+def compare_env(out, ref, margins) -> EnvComparison:
+    """A stage's outputs ``out`` (a NamedTuple of tensors, ``sim`` nested)
+    against the plain stage's ``ref`` from the same inputs, at the
+    tolerances above; ``margins`` (N,): ``env_margins`` of those inputs."""
+    n = margins.shape[0]
+    near_env = margins <= ENV_FLIP_SPACINGS
+    errors, outside, flips = {}, {}, []
+    a_all, b_all = _fields(out), _fields(ref)
+    for name, b in b_all.items():
+        a = a_all.get(name)
+        if a is None or a.shape != b.shape:
+            outside[name] = "given by one side" if a is None else "shape"
+            continue
+        per_env = b.dim() > 0 and b.shape[0] == n
+        if not b.is_floating_point():
+            bad = a != b
+            err = bad.double()
+        else:
+            err = (a.double() - b.double()).abs()
+            if name.startswith("acc_"):
+                tol = ENV_ACC_RTOL * b.double().abs()
+            elif name == "col_max":
+                # a column's maximum carries its column's rounding
+                tol = ENV_SPACINGS * 2.0 ** -24 * b_all["raw"].double().abs(
+                ).amax(0)
+            else:
+                scale = (b.double().abs().amax(0, keepdim=True) if per_env
+                         else b.double().abs())
+                tol = ENV_SPACINGS * 2.0 ** -24 * scale
+            bad = (err > tol) | (torch.isnan(a) != torch.isnan(b))
+            err = torch.where(torch.isnan(a) & torch.isnan(b),
+                              torch.zeros_like(err), err)
+        if per_env:
+            rows = bad.reshape(n, -1).any(1)
+            for e in (rows & near_env).nonzero().flatten().tolist():
+                flips.append((name, e, float(margins[e])))
+            bad = bad & ~near_env.reshape((n,) + (1,) * (b.dim() - 1))
+            err = err[~near_env] if err.dim() else err
+        elif b.dim() and bool(bad.any()) and bool(near_env.any()):
+            # a maximum over envs moves with a flipped env's entry
+            flips += [(name, -1, float(margins[near_env].max()))]
+            bad = torch.zeros_like(bad)
+        errors[name] = float(err.max()) if err.numel() else 0.0
+        if int(bad.sum()):
+            outside[name] = int(bad.sum())
+    shown = sorted({(e, round(mg, 2)) for _, e, mg in flips})
+    errs = ", ".join(f"{k} {v:.3g}" for k, v in errors.items() if v)
+    text = ((f"max abs err {errs} (every other output equal)" if errs
+             else "every output equal")
+        + f"; {int(near_env.sum())} envs with a "
+        f"deciding quantity within {ENV_FLIP_SPACINGS} spacings of its "
+        f"limit, {len(shown)} of them flipped"
+        + (f" (env at spacings: {shown[:8]}{' ...' if len(shown) > 8 else ''})"
+           if shown else "")
+        + f"; outside tolerance {outside or 'none'}")
+    return EnvComparison(errors, outside, flips, int(near_env.sum()), text)
+
+
+def cells_read(terrain, xy) -> int:
+    """How many rows of the packed corner table (``sim/terrain.py``) the
+    lookups at world xy (..., 2) read: each distinct cell once."""
+    from cat_tpu_torch.sim.terrain import cell_coords
+
+    return int(torch.unique(cell_coords(terrain, xy)[0]).numel())
+
+
+def env_counts(env, n, terms=None, qpos=None):
+    """{kernel: (bytes, f32 operations)} the env step's three kernels need
+    for n envs of ``env`` as ``ops/env_step.py`` runs them: each input the
+    function uses read once and each output written once (flags a byte,
+    the small tables once). The heightfield's packed corner table (16
+    bytes a cell, in L2 at the production grid's 8.2 MB) counts each
+    cell read once: with ``qpos`` (N, nq), the observed state (the
+    update's output), the cells the height scan reads there and, with
+    ``terms`` too, the cells under the reset envs' spawn positions;
+    without ``qpos``, one a lookup, at most the whole table. ``terms``
+    (a ``Terms``) gives the reset envs (none without it). Operations: a
+    few a column and a norm's 6 a slot and history entry (env_terms), ~10
+    a column and ~150 an env (env_update), ~30 a scan point and ~40 a
+    proprioceptive entry (env_obs); the library's exp, atan2, sin and cos
+    count as one each."""
+    m, cset, cfg = env.model, env.cset, env.cfg
+    nq, nv, nj, nr = m.nq, m.nv, m.nj, m.nreport
+    nf, nc = len(m.foot_report_ids), m.ncand
+    nt, K = cset.n_terms, cset.total_cols
+    from cat_tpu_torch.envs import constraints as C
+    from cat_tpu_torch.envs.cat import KERNEL_TERMS
+    from cat_tpu_torch.sim.maths import quat_yaw
+
+    # the report slots whose force history the terms and the terminations
+    # read
+    hist_kinds = {k for k, (f, _, _) in enumerate(KERNEL_TERMS) if f in (
+        C.contact, C.n_foot_contact, C.foot_contact_force)}
+    tab = cset.descriptors
+    slots = len({int(i) for i in env.illegal_ids.tolist()}
+                | {int(i) for row in tab.ints if row[0] in hist_kinds
+                   for i in tab.ids[row[3]:row[3] + row[4]]})
+    tables = 4 * (tab.ints.size + tab.floats.size + tab.ids.size + 2 * nj)
+    terms_b = (4 * n * (nq + 4 * nj + 9 * slots + nf + 3 + 1 + K + 1)
+               + n * (nf + 3) + 4 * K + tables)
+    terms_f = n * (3 * K + 18 * slots + 60)
+
+    # the corner table's cells each lookup reads, each counted once
+    hs, terr = cfg.height_scan, cfg.terrain
+    pts = hs.num_points if hs is not None else 0
+    reset_cells = scan_cells = 0
+    if terr.kind == "hfield":
+        R, Cn = terr.height.shape
+        cells = (R - 1) * (Cn - 1)
+        resets = None if terms is None else (
+            terms.time_out | terms.illegal | terms.upside)
+        if resets is not None:
+            reset_cells = (min(int(resets.sum()), cells) if qpos is None
+                           else cells_read(terr, qpos[resets, 0:2]))
+        if pts:
+            scan_cells = (min(n * pts, cells) if qpos is None
+                          else cells_read(terr, env.scan_points(
+                              qpos[:, 0:3], quat_yaw(qpos[:, 3:7]))))
+
+    sim_words = nq + nv + 3 * nc + 2 * nj + 12 * nr + 4 * nf
+    draws = (3 + nj) + 13 + (3 if cfg.events.push_enabled else 0)
+    reads = (K + 2 * nt + 1 + 3 + 1 + 2 + 2 + 2 * nj + sim_words + draws + 1)
+    writes = (sim_words + 2 + 2 * nt + 1 + 2 * nt + 6 + 1 + 2 * nj + 3 + 1
+              + 2 + 1)
+    update_b = (4 * n * (reads + writes) + 2 * n * nf + 3 * n
+                + 4 * (3 * K + 2 * nt + 3 * nj) + 16 * reset_cells)
+    update_f = n * (10 * K + 150)
+    noise = 6 + 2 * nj + (pts if cfg.noise.enabled and pts else 0)
+    obs_b = (4 * n * (nq + nv + 3 + nj + noise + env.num_obs)
+             + 16 * scan_cells + 4 * 2 * pts)
+    obs_f = n * (40 * (9 + 3 * nj) + 30 * pts)
+    return {"env_terms": (terms_b, terms_f), "env_update": (update_b, update_f),
+            "env_obs": (obs_b, obs_f)}
+
+
+def env_inputs(env, n, steps, policy, seed=0):
+    """A state to step from: ``steps`` env steps of ``policy`` (obs ->
+    action) from a fresh state of n envs. Returns (the state, the
+    policy's next action, the generator)."""
+    dev = env.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    es = env.init(gen, n)
+    obs = env.observe(es, gen)
+    with torch.no_grad():
+        for _ in range(steps):
+            es, obs, *_ = env.step(es, policy(obs), gen)
+        action = policy(obs)
+    return es, action, gen
+
+
+@contextlib.contextmanager
+def plain_stages(calls=None):
+    """Within it, ``CatEnv._step_eager`` and ``observe`` run the env
+    step's plain stages (``CatEnv.terms_stage``, ``update_stage``,
+    ``obs_stage``) on any device, in place of ``ops/env_step.py``'s
+    dispatch. With ``calls`` (a list), each stage's call is appended to
+    it, in the step's order: (kernel name, its arguments after the env,
+    its keyword arguments, its output)."""
+    from cat_tpu_torch.ops import env_step
+
+    saved = {name: getattr(env_step, name) for name, _ in env_step.ENV_KERNELS}
+
+    def plain(name, stage):
+        def run(env, *args, **kwargs):
+            out = getattr(env, stage)(*args, **kwargs)
+            if calls is not None:
+                calls.append((name, args, kwargs, out))
+            return out
+        return run
+
+    try:
+        for name, stage in zip(saved, ("terms_stage", "update_stage",
+                                       "obs_stage")):
+            setattr(env_step, name, plain(name, stage))
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(env_step, name, fn)
+
+
+def env_stage_pairs(env, state, action, gen):
+    """Each env kernel and its plain stage on the inputs the plain stages
+    get in one env step from ``state`` with ``action`` (``_step_eager``
+    under ``plain_stages``: the step's own draws from ``gen``, its own
+    order): {kernel name (a split ``env_update``'s parts as
+    ``env_update[reset]`` and ``env_update[commands]``): (kernel's
+    outputs, plain stage's, env_margins of the inputs, a call of the
+    kernel, a call of the plain stage)}."""
+    from cat_tpu_torch.ops import env_step
+
+    calls = []
+    with plain_stages(calls):
+        env._step_eager(state, action, gen)
+    kernels = dict(env_step.ENV_KERNELS)
+    terms_args = calls[0][1]             # (state, sim, action, prev_action)
+    margins = env_margins(env, *terms_args)
+    pairs = {}
+    for name, args, kwargs, ref in calls:
+        kernel = functools.partial(kernels[name], env, *args, **kwargs)
+        stage = functools.partial(
+            getattr(env, name.replace("env_", "") + "_stage"), *args,
+            **kwargs)
+        out, m = kernel(), margins
+        if name == "env_obs":
+            out, ref = _Obs(out), _Obs(ref)
+            m = torch.full_like(margins, float("inf"))
+        elif name == "env_update" and ref.command is not None:
+            m = torch.minimum(margins, env_margins(env, *terms_args,
+                                                   command=ref.command))
+        key = f"{name}[{kwargs['part']}]" if "part" in kwargs else name
+        pairs[key] = (out, ref, m, kernel, stage)
+    return pairs
+
+
+class _Obs(NamedTuple):
+    obs: torch.Tensor

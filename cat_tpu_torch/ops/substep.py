@@ -1,6 +1,7 @@
 """The physics substep around the contact solve as three CUDA kernels,
 their wrappers, the dispatch to their plain PyTorch versions, and the one
-list of the port's kernels (``KERNELS``).
+list of the port's kernels (``KERNELS``: the two contact solves, these
+three and the env step's three, ``ops/env_step.py`` ``ENV_KERNELS``).
 
   * ``substep_dynamics`` (``csrc/substep_dyn.cu``): PD torque, forward
     kinematics, M, C, M^-1 and v_free, one warp an env;
@@ -46,6 +47,7 @@ from cat_tpu_torch.sim.dynamics import ContactKin
 from cat_tpu_torch.sim.terrain import _packed_corners
 
 from . import build, pgs
+from .env_step import ENV_KERNELS
 from .pgs import _device_and_stream
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -457,11 +459,13 @@ DYN_KERNEL = SubstepDynKernel()
 CONTACT_KERNEL = ContactRowsKernel()
 POST_KERNEL = SubstepPostKernel()
 # the one list of the port's kernels: (name, wrapper), the substep's three
-# in the order a substep launches them
+# in the order a substep launches them, then the env step's three
+# (ops/env_step.py)
 SUBSTEP_KERNELS = (("substep_dynamics", DYN_KERNEL),
                    ("contact_rows", CONTACT_KERNEL),
                    ("substep_post", POST_KERNEL))
-KERNELS = (("pgs_bj", pgs.KERNEL), ("pgs_gs", pgs.GS_KERNEL)) + SUBSTEP_KERNELS
+KERNELS = ((("pgs_bj", pgs.KERNEL), ("pgs_gs", pgs.GS_KERNEL))
+           + SUBSTEP_KERNELS + ENV_KERNELS)
 
 
 def substep_dynamics(mt, params, qpos, qvel, target_q, com_offset=None):

@@ -81,6 +81,22 @@ def _packed_corners(terrain: Terrain, device) -> torch.Tensor:
     return tables[key]
 
 
+def cell_coords(terrain: Terrain, xy: torch.Tensor):
+    """(row of the packed corner table, fu, fv) of world xy (..., 2): the
+    cell a lookup reads and the position inside it, clamped to the grid's
+    edge cells; a NaN position reads cell 0 and keeps NaN fractions."""
+    R, C = terrain.height.shape
+    u = xy[..., 0] / terrain.cell + R / 2.0 - 0.5
+    v = xy[..., 1] / terrain.cell + C / 2.0 - 0.5
+    u = torch.clamp(u, 0.0, R - 1.001)
+    v = torch.clamp(v, 0.0, C - 1.001)
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    iu = torch.nan_to_num(u0, nan=0.0).long()
+    iv = torch.nan_to_num(v0, nan=0.0).long()
+    return iu * (C - 1) + iv, u - u0, v - v0
+
+
 def height_grad_at(terrain: Terrain, xy: torch.Tensor):
     """Bilinear height and its in-cell gradient at world xy (..., 2).
 
@@ -89,19 +105,9 @@ def height_grad_at(terrain: Terrain, xy: torch.Tensor):
     its edge cells. A NaN position gives NaN values and still reads an
     in-range cell (``clamp`` passes NaN through, and a NaN cast to an index
     would read out of range)."""
-    R, C = terrain.height.shape
     H4 = _packed_corners(terrain, xy.device)
-    u = xy[..., 0] / terrain.cell + R / 2.0 - 0.5
-    v = xy[..., 1] / terrain.cell + C / 2.0 - 0.5
-    u = torch.clamp(u, 0.0, R - 1.001)
-    v = torch.clamp(v, 0.0, C - 1.001)
-    u0 = torch.floor(u)
-    v0 = torch.floor(v)
-    fu = u - u0
-    fv = v - v0
-    iu = torch.nan_to_num(u0, nan=0.0).long()
-    iv = torch.nan_to_num(v0, nan=0.0).long()
-    cell = H4[iu * (C - 1) + iv]                         # (..., 4)
+    index, fu, fv = cell_coords(terrain, xy)
+    cell = H4[index]                                     # (..., 4)
     h00, h01, h10, h11 = cell[..., 0], cell[..., 1], cell[..., 2], cell[..., 3]
     h = (h00 * (1 - fu) * (1 - fv) + h01 * (1 - fu) * fv
          + h10 * fu * (1 - fv) + h11 * fu * fv)

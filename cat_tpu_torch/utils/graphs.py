@@ -27,12 +27,31 @@ nothing falls back to the eager step.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
 
 from cat_tpu_torch.ops import substep
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Around a capture: a dead reference cycle that holds another CUDA
+    graph must not be collected while it runs (its graph's destructor
+    frees memory, which invalidates the capture; PyTorch no longer
+    collects when a capture begins). So collect first, and keep the
+    collector off until the capture ends."""
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def signature(tensors: Sequence) -> tuple:
@@ -85,7 +104,8 @@ class Graph:
             graph.register_generator_state(gen)
         # thread_local: another thread's CUDA calls (NCCL's watchdog) do
         # not invalidate the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with no_collection(), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
             out = fn(*self.inputs)
         self.out, self.spec = pytree.tree_flatten(out)
         self.launches = tuple((k, k.launches - b)

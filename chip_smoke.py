@@ -5,11 +5,11 @@
 
 Phases, each printed with its elapsed seconds:
   device: the card, its power limit, the torch and CUDA versions;
-  build: the five kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu,
-     contact_rows.cu and substep_post.cu, and the phase-clock builds of
-     the last three (-DSUBSTEP_PHASE_CLOCKS, libraries of their own), one
-     plain nvcc each, started together, with ptxas's registers, stack and
-     spills;
+  build: the eight kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu,
+     contact_rows.cu, substep_post.cu, env_terms.cu, env_update.cu and
+     env_obs.cu, and the phase-clock builds of the three substep kernels
+     (-DSUBSTEP_PHASE_CLOCKS, libraries of their own), one plain nvcc
+     each, started together, with ptxas's registers, stack and spills;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
      N = 4096, on contact problems captured from the port's flat Solo12 env
      (36 contacts) and from its Go2 env (28 contacts), on seeded random
@@ -56,6 +56,20 @@ Phases, each printed with its elapsed seconds:
      name and power limit; last its ptxas registers and spills (and its
      clock build's), its shared memory a block and blocks an SM at
      Solo12's shape: 4096 envs must run in one wave, unspilled;
+  kernel-env: the env step's three kernels (ops/env_step.py env_terms,
+     env_update, env_obs) against their plain stages (envs/env.py
+     terms_stage, update_stage, obs_stage) on the inputs each plain stage
+     gets in one env step (``measure.env_stage_pairs`` records them from
+     ``_step_eager``), on states of the flat, rough (the production
+     terrain) and Go2 envs at N = 4096 after 30 env steps of a
+     JAX-trained policy (``measure.env_inputs``): every output within
+     ``measure.compare_env``, the largest error of each printed, each
+     decision that came out otherwise with its margin in float32
+     spacings (at most 4); two launches from one input equal bit for
+     bit; each kernel's time as CUDA-graph replays (50), the plain
+     stage's replayed, the bound of ``measure.env_counts`` (each terrain
+     cell the step reads counted once) and its share, beside the card's
+     name and power limit; last each kernel's ptxas registers and spills;
   graph: the control step's CUDA graph (``Engine.__call__`` on the card)
      against the eager substep loop (``Engine._eager``) in each engine
      configuration the port runs: the flat env's block-Jacobi engine at
@@ -86,9 +100,10 @@ Phases, each printed with its elapsed seconds:
      in turns: after every iteration the first two's env state,
      parameters, Adam's state, normalisers, generators' states and
      metrics equal the third's bit for bit; each kernel launches 96 times
-     an iteration on each; the graphed trainer holds the iteration's two
-     graphs and no env step graph, the steps trainer the draw's, the Adam
-     step's and the env step's; the last iteration runs under
+     an iteration on each, each env kernel 24 times (and env_obs once a
+     trainer, for its reset observation); the graphed trainer holds the
+     iteration's two graphs and no env step graph, the steps trainer the
+     draw's, the Adam step's and the env step's; the last iteration runs under
      torch.profiler: the host's runtime calls that put work on the card
      (kernel and graph launches, copies, sets), the card's events, busy
      seconds and idle share of that iteration; each side's iteration
@@ -136,8 +151,9 @@ Phases, each printed with its elapsed seconds:
   resume: ckpt_2 restored into a fresh trainer equals the saved state bit
      for bit (every tensor, the generators), and 3 more iterations run
      from the carried learning rate through the iteration's graphs (its
-     warm-up, capture and a replay; 96 launches each), each equal bit for
-     bit to the same checkpoint's iteration op by op;
+     warm-up, capture and a replay; 96 launches each, 24 of each env
+     kernel), each equal bit for bit to the same checkpoint's iteration
+     op by op;
   play-run: ``cat_tpu_torch.play`` on that run directory at 4096 envs for
      200 control steps (800 launches): it restores the card's checkpoint
      non-strict into Go2-CaT-Flat-Play-v0, exports it and writes
@@ -187,16 +203,19 @@ Phases, each printed with its elapsed seconds:
      ``make_batched_init(model, n)``, the reference's two-argument call,
      lands on the card as ``init_state`` broadcast.
 Training runs log to a temporary directory, never inside the repo.
-Every launch count (the five kernels', ``substep.KERNELS``) is set to 0
+Every launch count (the eight kernels', ``substep.KERNELS``) is set to 0
 just before its path and read just after (in the train-dist processes,
 before each iteration); the substep's three kernels must launch once a
 substep wherever the contact solve does (in the bench's windows as it
 counts them, and at least as often in all: its checks after each window
 add launches; in the probe the rollout's and, but for the post kernel,
-one a capture). The
+one a capture); the env kernels' launches are counted in train-graph
+and resume (one each an env step, and env_obs one a reset
+observation). The
 JSON line's launches are their sums over all paths and processes (the
 drill's trainers, which the drill itself checks, excepted; the
-comparisons of kernel-dyn, kernel-post and graph not counted). The last lines are
+comparisons of kernel-dyn, kernel-post, kernel-env and graph not
+counted). The last lines are
 a JSON line of kernel numbers, the card's name and power
 limit, and the result line. Any failure exits non-zero before the result
 line; a hang is cut by a faulthandler deadline.
@@ -261,6 +280,16 @@ PROBE_ENVS = 256     # probe: the reference tool's N
 # bj:1:0.5:8 0.173-0.215.
 PROBE_IMP_ERR = (0.037, 1.5)
 PROBE_VN_EXCESS = 0.172
+ENV_STEPS = 30       # kernel-env: env steps of a policy before the state
+# kernel-env: (label, task module, policy bundle under runs/) of each state
+ENV_CASES = (("flat", "solo12_flat", "solo12_flat_2000it"),
+             ("rough", "solo12_rough", "solo12_flat_2000it"),
+             ("go2", "go2_flat", "go2_r4"))
+# the JAX lines each env kernel is the counterpart of (it replaces no
+# Pallas kernel)
+ENV_REPLACES = {"env_terms": "cat_tpu/envs/env.py:514",
+                "env_update": "cat_tpu/envs/env.py:538",
+                "env_obs": "cat_tpu/envs/env.py:719"}
 GRAPH_STEPS = 5      # graph: control steps held bit for bit, then timed
 # train-graph: the tasks (and agent presets) whose iterations are held
 # graphed against eager, and how many iterations, the last one profiled
@@ -482,8 +511,8 @@ def train_argv(task, logdir, iters, *extra):
             "none", *extra]
 
 
-# the substep kernels' rows of the JSON line (filled by main), whose
-# launches check_launches adds up
+# the substep and env kernels' rows of the JSON line (filled by main),
+# whose launches add_launches adds up
 SUBSTEP_ROWS: dict = {}
 
 
@@ -552,6 +581,16 @@ def add_substep_launches(phase, expected, at_least=False):
     """``add_launches`` of each substep kernel, all ``expected``."""
     for name, kernel in substep_kernels():
         add_launches(phase, name, kernel, expected, at_least)
+
+
+def add_env_launches(phase, steps, observes=0):
+    """``add_launches`` of each env kernel: ``steps`` env steps, and
+    ``observes`` reset observations (env_obs alone)."""
+    from cat_tpu_torch.ops import env_step
+
+    for name, kernel in env_step.ENV_KERNELS:
+        add_launches(phase, name, kernel,
+                     steps + (observes if name == "env_obs" else 0))
 
 
 def check_finite(phase, history):
@@ -1246,6 +1285,85 @@ def kernel_post_phase(dev, smi):
     return row
 
 
+def bundle_policy(run, dev):
+    """The mean action of the JAX-trained policy bundle under runs/``run``
+    on an observation's first 45 entries, plus noise of 0.3 from a seeded
+    generator, so that the envs differ."""
+    import torch
+
+    net, obs_mean, obs_var = load_actor(
+        Path(__file__).resolve().parent / "runs" / run / "policy_params.npz",
+        dev)
+    obs_std = torch.sqrt(obs_var + 1e-8)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def act(obs):
+        a = net.actor((obs[:, :45] - obs_mean) / obs_std)
+        return a + 0.3 * torch.randn(a.shape, generator=gen, device=dev)
+    return act
+
+
+def kernel_env_phase(dev, smi):
+    """kernel-env (module docstring). Returns the env kernels' rows, by
+    name."""
+    import importlib
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from cat_tpu_torch import measure
+    from cat_tpu_torch.ops import build, env_step
+
+    phase = "kernel-env"
+    rows = {name: dict(name=name, route="cuda", launches=0, max_abs_err=0.0,
+                       source=f"cat_tpu_torch/ops/csrc/{name}.cu",
+                       replaces=ENV_REPLACES[name])
+            for name, _ in env_step.ENV_KERNELS}
+    for label, task, run in ENV_CASES:
+        env = importlib.import_module(f"cat_tpu_torch.tasks.{task}").make_env(
+            N_ENVS, device=dev)
+        inputs = measure.env_inputs(env, N_ENVS, ENV_STEPS,
+                                    bundle_policy(run, dev))
+        pairs = measure.env_stage_pairs(env, *inputs)
+        torch.cuda.synchronize()
+        terms = pairs["env_terms"][1]
+        resets = int((terms.time_out | terms.illegal | terms.upside).sum())
+        counts = measure.env_counts(env, N_ENVS, terms,
+                                    qpos=pairs["env_update"][1].sim.qpos)
+        for name, (out, ref, margins, call, plain) in pairs.items():
+            cmp = measure.compare_env(out, ref, margins)
+            again = call()
+            same = all(torch.equal(a, b) for a, b in zip(
+                pytree.tree_leaves(out), pytree.tree_leaves(again)))
+            log(phase, f"{label} {name} ({resets} of {N_ENVS} envs reset): "
+                       f"{cmp.text}; a second launch bit for bit: {same}")
+            if not cmp.ok or not same:
+                raise RuntimeError(f"{name} disagrees with its plain stage "
+                                   f"({label})")
+            ms = measure.graph_ms(call, 50)
+            plain_ms = measure.graph_ms(plain, 5)
+            byts, flops = counts[name]
+            bound, by = measure.bound(byts, flops)
+            log(phase, f"{label} {name}: kernel {ms:.4f} ms (graph replays); "
+                       f"plain {plain_ms:.3f} ms replayed; bound "
+                       f"{bound:.4f} ms by {by} ({byts / 1e6:.2f} MB, "
+                       f"{flops / 1e9:.4f} GFLOP): {bound / ms * 100:.1f}% "
+                       f"of it; N = {N_ENVS}; {smi}")
+            row = rows[name]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     max(cmp.errors.values(), default=0.0))
+            if label == "flat":        # the flat cell's configuration
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by)
+        del env, inputs, pairs
+    for name, kernel in env_step.ENV_KERNELS:
+        res = build.ptxas_resources(kernel.built.log)
+        log(phase, f"{name}: {kernel.built.path.name}; ptxas {res}; "
+                   f"launches in this phase {kernel.launches} (not counted: "
+                   f"a comparison)")
+    return rows
+
+
 def graph_configs(dev):
     """graph phase: (name, make) of each engine configuration; ``make()``
     returns (engine, state, targets (GRAPH_STEPS, n, nj), mu, com_offset
@@ -1494,9 +1612,12 @@ def train_graph_phase(logdir, smi, tasks=TRAIN_GRAPH,
     total = 0
     for task, agent in tasks:
         argv = train_argv(task, logdir, iters, "--agent", agent)
+        zero_counts()
         sides = {"graphed": train.Trainer(train.parse_args(argv)),
                  "steps": steps_trainer(train.Trainer(train.parse_args(argv))),
                  "eager": eager_trainer(train.Trainer(train.parse_args(argv)))}
+        add_env_launches(f"{phase} {task} reset observations", 0,
+                         observes=len(sides))
         seconds = {side: [] for side in sides}
         for it in range(1, iters + 1):
             metrics = {}
@@ -1520,6 +1641,7 @@ def train_graph_phase(logdir, smi, tasks=TRAIN_GRAPH,
                     seconds[side].append(s)
                 total += check_launches(f"{phase} {task} {side} it {it}",
                                         pgs.KERNEL, 24 * env_decimation())
+                add_env_launches(f"{phase} {task} {side} it {it}", 24)
             g, st, e = sides["graphed"], sides["steps"], sides["eager"]
             for side in ("graphed", "steps"):
                 differ = trainer_differences(sides[side], e, metrics[side],
@@ -1567,7 +1689,9 @@ def resume_phase(argv, ckpt, logged_lr) -> int:
     from cat_tpu_torch.rl import checkpoint
 
     phase = "resume"
+    zero_counts()
     fresh = train.Trainer(train.parse_args(argv))
+    add_env_launches(f"{phase} reset observation", 0, observes=1)
     fresh.restore(ckpt)
     saved = checkpoint.load(ckpt)
     differ = checkpoint.mismatches(
@@ -1583,7 +1707,9 @@ def resume_phase(argv, ckpt, logged_lr) -> int:
     # the graphed iteration from the restore (its warm-up, capture and a
     # replay) against the same checkpoint restored into a trainer whose
     # iteration runs op by op
+    zero_counts()
     eager = eager_trainer(train.Trainer(train.parse_args(argv)))
+    add_env_launches(f"{phase} eager reset observation", 0, observes=1)
     eager.restore(ckpt)
     history, launches = [], 0
     for it in range(PPO_ITERS + 1, PPO_ITERS + RESUME_ITERS + 1):
@@ -1592,10 +1718,12 @@ def resume_phase(argv, ckpt, logged_lr) -> int:
         metrics = fresh.train_iteration()
         seconds = time.perf_counter() - t0
         launches += check_launches(phase, pgs.KERNEL, 24 * env_decimation())
+        add_env_launches(phase, 24)
         zero_counts()
         ref = eager.train_iteration()
         launches += check_launches(f"{phase} eager", pgs.KERNEL,
                                    24 * env_decimation())
+        add_env_launches(f"{phase} eager", 24)
         differ = trainer_differences(fresh, eager, metrics, ref)
         log(phase, f"iteration {it} after the restore, graphed vs eager: "
                    f"leaves and metrics that differ in any bit: "
@@ -1846,8 +1974,11 @@ def main() -> int:
                f"CUDA {torch.version.cuda} | {torch.cuda.device_count()} card(s)")
 
     phase = "build"
+    from cat_tpu_torch.ops import env_step
+
     kernels = (pgs.KERNEL, pgs.GS_KERNEL,
-               *(k for _, k in substep_kernels() + substep_kernels(True)))
+               *(k for _, k in substep_kernels() + substep_kernels(True)
+                 + env_step.ENV_KERNELS))
     with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc a source
         builds = list(pool.map(lambda k: k.load(), kernels))
     for built in builds:
@@ -1914,8 +2045,9 @@ def main() -> int:
 
     dyn, con = kernel_dyn_phase(dev, smi)
     post = kernel_post_phase(dev, smi)
+    env_rows = kernel_env_phase(dev, smi)
     SUBSTEP_ROWS.update(substep_dynamics=dyn, contact_rows=con,
-                        substep_post=post)
+                        substep_post=post, **env_rows)
     bj["launches"] = gs["launches"] = 0
 
     graph_phase(dev, bj, gs, smi)
@@ -2188,7 +2320,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: dict(row, route="cuda", library_ms=None)[k] for k in keys}
-        for row in (bj, gs, dyn, con, post)]}), flush=True)
+        for row in (bj, gs, dyn, con, post, *env_rows.values())]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -41,7 +41,7 @@ from cat_tpu_torch import bench
 from cat_tpu_torch.models.box import box_model, on_slope_qpos, slope_terrain
 from cat_tpu_torch.models.go2 import GO2_KD, GO2_KP, go2_model
 from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP, solo12_model
-from cat_tpu_torch.ops import pgs, substep
+from cat_tpu_torch.ops import env_step, pgs, substep
 from cat_tpu_torch.rl import agent_cfgs, checkpoint
 from cat_tpu_torch.rl.normalize import RmsState
 from cat_tpu_torch.rl.ppo import PPO, PpoCfg
@@ -53,6 +53,24 @@ torch.set_num_threads(1)
 BJ = dict(structure="bj", bj_blocks=4, omega=0.9, iterations=6)
 CONFIGS = ("flat-bj", "rough-gs", "go2", "box", "com")
 STEPS = 3
+
+
+def _physics_path():
+    """The kernels of the env step's control step: the block-Jacobi solve
+    and the substep's three, each once a substep."""
+    return [pgs.KERNEL] + [k for _, k in substep.SUBSTEP_KERNELS]
+
+
+def _env_path():
+    """The env step's three kernels around the physics."""
+    return [k for _, k in env_step.ENV_KERNELS]
+
+
+def _env_launches(env):
+    """Each env kernel's launches a step: one, and env_update's two parts
+    apart where a reset event term runs between them."""
+    split = any(t.mode == "reset" for t in env.cfg.events.extra_terms)
+    return [1, 2 if split else 1, 1]
 
 
 @pytest.fixture(scope="module")
@@ -334,14 +352,15 @@ def test_env_step_graph_equals_eager_bit_for_bit(cuda, name):
                                     device=cuda).manual_seed(1), device=cuda)
     g_graph = torch.Generator(device=cuda).manual_seed(2)
     g_eager = torch.Generator(device=cuda).manual_seed(2)
-    path = [k for name_, k in substep.KERNELS if name_ != "pgs_gs"]
+    path = _physics_path() + _env_path()
     a = b = es
     for k in range(STEPS + 1):
         before = [kernel.launches for kernel in path]
         out = env.step(a, actions[k], g_graph)
         torch.cuda.synchronize()
-        assert [kernel.launches - n for kernel, n in zip(path, before)] == [
-            env.cfg.decimation] * len(path), f"env step {k}"
+        assert [kernel.launches - n for kernel, n in zip(path, before)] == (
+            [env.cfg.decimation] * len(_physics_path())
+            + _env_launches(env)), f"env step {k}"
         ref = env._step_eager(b, actions[k], g_eager)
         assert _differ(out, ref) == [], f"env step {k}"
         assert torch.equal(g_graph.get_state(), g_eager.get_state())
@@ -455,16 +474,19 @@ def _trainers(name, dev):
 
 
 def _iterate(env, sides, k):
-    """Iteration ``k`` on both sides; each kernel of the path launches
-    once a substep on each. Returns the two metrics dicts."""
-    path = [kernel for name_, kernel in substep.KERNELS if name_ != "pgs_gs"]
+    """Iteration ``k`` on both sides; each kernel of the physics path
+    launches once a substep on each, each env kernel as ``_env_launches``
+    says an env step. Returns the two metrics dicts."""
+    path = _physics_path() + _env_path()
     metrics = []
     for side in sides:
         before = [kernel.launches for kernel in path]
         side[2], m = side[0].train_iteration(side[2], side[1])
         torch.cuda.synchronize()
-        assert [kernel.launches - n for kernel, n in zip(path, before)] == [
-            env.cfg.decimation * side[0].cfg.num_steps] * len(path), k
+        steps = side[0].cfg.num_steps
+        assert [kernel.launches - n for kernel, n in zip(path, before)] == (
+            [env.cfg.decimation * steps] * len(_physics_path())
+            + [steps * n for n in _env_launches(env)]), k
         metrics.append(m)
     return metrics
 
