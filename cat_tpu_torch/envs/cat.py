@@ -11,7 +11,9 @@ The env step computes the raw columns and their maxima first (``raw``,
 ``column_max``), then the transform (``transform``); ``compute`` is the
 two. ``term_table`` describes each term to the env kernels
 (``ops/env_step.py``): one of ``KERNEL_TERMS``, which they compute
-themselves, or a column block its own function computes and hands them.
+themselves, or a column block its own function computes and hands them;
+``column_table`` describes each column of those terms, as ``env_terms``
+reads it.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ GIVEN = -1       # a term whose own function computes its columns
 TERM_INTS = 5    # kind, first column, columns, first id or given column, ids
 # the kinds with one column whatever their ids (the others: a column an id)
 _ONE_COLUMN = (C.contact, C.n_foot_contact)
+# the kinds that read report slots' force-history norms
+_HIST = (C.contact, C.n_foot_contact, C.foot_contact_force)
+MAX_SLOTS = 64   # report slots env_terms stages: a 64-bit mask of them
 
 
 class TermTable(NamedTuple):
@@ -104,7 +109,10 @@ def term_table(terms: Sequence[ConstraintTerm], slices) -> TermTable:
                 or not all(_is_number(t.params[p]) for p in names)
                 or not np.issubdtype(term_ids.dtype, np.integer)
                 or b - a != (1 if idx is None or t.func in _ONE_COLUMN
-                             else len(term_ids))):
+                             else len(term_ids))
+                # a count over repeated slots: not a mask of them
+                or (t.func is C.n_foot_contact
+                    and len(set(term_ids.tolist())) != len(term_ids))):
             kind = GIVEN
         vals = [0.0, 0.0]
         if kind == GIVEN:
@@ -119,6 +127,79 @@ def term_table(terms: Sequence[ConstraintTerm], slices) -> TermTable:
     return TermTable(np.asarray(ints, np.int32).reshape(-1, TERM_INTS),
                      np.asarray(floats, np.float32).reshape(-1, 2),
                      np.asarray(ids, np.int32), tuple(given))
+
+
+class ColumnTable(NamedTuple):
+    """The raw columns as ``env_terms`` computes them, one row a column
+    (the terms' spans in order): ``ints`` (K, 3) int32 (kind, a, b),
+    ``floats`` (K, 2) float32 (its term's two floats), ``slots`` the
+    report slots whose force-history norms the kernel computes once an
+    env, ascending, and ``illegal`` the illegal-contact slots as places in
+    ``slots``. a and b by kind: a joint position (``joint_position``,
+    ``..._when_moving_forward``, ``joint_range``): 7 + its model joint
+    (its place in qpos) and its task joint (the default position's);
+    torque and acceleration: the model joint; velocity and ``no_move``: 6
+    + the model joint (qvel); ``action_rate``: the task joint;
+    ``air_time``: the foot; ``foot_contact_force``: the slot's place in
+    ``slots``; ``contact`` and ``n_foot_contact``: the places of their
+    slots as a 64-bit mask, low word in a, high word in b; a given
+    column: its column in the given block; the rest: 0."""
+    ints: np.ndarray
+    floats: np.ndarray
+    slots: np.ndarray
+    illegal: np.ndarray
+
+
+def column_table(descriptors: TermTable, t2m, illegal=()) -> ColumnTable:
+    """``ColumnTable`` of the terms ``descriptors`` describes, for the
+    task-to-model joint map ``t2m`` and the illegal-contact report slots
+    ``illegal``."""
+    t2m = np.asarray(t2m, np.int64).reshape(-1)
+    rows = [(r, f) for r, f in zip(descriptors.ints, descriptors.floats)]
+    hist = {k for k, (f, _, _) in enumerate(KERNEL_TERMS) if f in _HIST}
+    slots = sorted({int(i) for i in np.asarray(illegal).reshape(-1)}
+                   | {int(i) for (kind, _, _, first, nids), _ in rows
+                      if kind in hist
+                      for i in descriptors.ids[first:first + nids]})
+    if len(slots) > MAX_SLOTS:
+        raise ValueError(f"{len(slots)} report slots read: env_terms "
+                         f"stages at most {MAX_SLOTS}")
+    place = {s: k for k, s in enumerate(slots)}
+    kinds = {f: k for k, (f, _, _) in enumerate(KERNEL_TERMS)}
+    joint_q = {kinds[f] for f in (C.joint_position, C.joint_range,
+                                  C.joint_position_when_moving_forward)}
+    joint_v = {kinds[f] for f in (C.joint_velocity, C.no_move)}
+    joint = {kinds[f] for f in (C.joint_torque, C.joint_acceleration)}
+    one = {kinds[f] for f in _ONE_COLUMN}
+    ints, floats = [], []
+    for (kind, _, nc, first, nids), vals in rows:
+        ids = [int(i) for i in descriptors.ids[first:first + nids]]
+        for c in range(nc):
+            if kind == GIVEN:
+                a, b = first + c, 0
+            elif kind in one:
+                mask = sum(1 << place[i] for i in set(ids))
+                a, b = np.array([mask & 0xffffffff, mask >> 32],
+                                np.uint32).view(np.int32)
+            elif not ids:
+                a = b = 0
+            elif kind in joint_q:
+                a, b = 7 + int(t2m[ids[c]]), ids[c]
+            elif kind in joint_v:
+                a, b = 6 + int(t2m[ids[c]]), 0
+            elif kind in joint:
+                a, b = int(t2m[ids[c]]), 0
+            elif kind == kinds[C.foot_contact_force]:
+                a, b = place[ids[c]], 0
+            else:       # action_rate's task joint, air_time's foot
+                a, b = ids[c], 0
+            ints.append([kind, int(a), int(b)])
+            floats.append(vals)
+    return ColumnTable(np.asarray(ints, np.int32).reshape(-1, 3),
+                       np.asarray(floats, np.float32).reshape(-1, 2),
+                       np.asarray(slots, np.int32),
+                       np.asarray([place[int(i)] for i in np.asarray(
+                           illegal).reshape(-1)], np.int32))
 
 
 class ConstraintSet:
@@ -155,16 +236,13 @@ class ConstraintSet:
         self._device_table = {}
 
     def device_table(self):
-        """(ints, floats, ids, is_cur as uint8) of ``descriptors`` on the set's
-        device, made once: a CUDA graph's capture may copy nothing from the
-        host."""
+        """(ints of ``descriptors``, is_cur as uint8) on the set's device,
+        made once: a CUDA graph's capture may copy nothing from the host.
+        The kernels read each column's ids from ``column_table``."""
         if not self._device_table:
-            t = self.descriptors
             self._device_table.update(
-                ints=torch.as_tensor(t.ints, device=self.device),
-                floats=torch.as_tensor(t.floats, device=self.device),
-                ids=torch.as_tensor(np.append(t.ids, 0).astype(np.int32),
-                                    device=self.device),
+                ints=torch.as_tensor(self.descriptors.ints,
+                                     device=self.device),
                 is_cur=self._is_cur.to(torch.uint8))
         return self._device_table
 

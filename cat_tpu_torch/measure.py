@@ -778,10 +778,11 @@ def env_counts(env, n, terms=None, qpos=None):
     sim_words = nq + nv + 3 * nc + 2 * nj + 12 * nr + 4 * nf
     draws = (3 + nj) + 13 + (3 if cfg.events.push_enabled else 0)
     reads = (K + 2 * nt + 1 + 3 + 1 + 2 + 2 + 2 * nj + sim_words + draws + 1)
-    writes = (sim_words + 2 + 2 * nt + 1 + 2 * nt + 6 + 1 + 2 * nj + 3 + 1
-              + 2 + 1)
+    writes = (sim_words + 2 + 2 * nt + 1 + 1 + 2 * nj + 3 + 1 + 2 + 1)
+    # the accumulators (2 n_terms + 6 words), read and written once
     update_b = (4 * n * (reads + writes) + 2 * n * nf + 3 * n
-                + 4 * (3 * K + 2 * nt + 3 * nj) + 16 * reset_cells)
+                + 4 * (3 * K + 2 * nt + 3 * nj) + 8 * (2 * nt + 6)
+                + 16 * reset_cells)
     update_f = n * (10 * K + 150)
     noise = 6 + 2 * nj + (pts if cfg.noise.enabled and pts else 0)
     obs_b = (4 * n * (nq + nv + 3 + nj + noise + env.num_obs)

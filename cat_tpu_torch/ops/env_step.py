@@ -19,9 +19,19 @@ the kernel (built by plain nvcc with ``-fmad=false``, bound with ctypes) or
 raise; on a CPU tensor they run the plain version. There is no fallback
 from the card to the plain version. The random draws stay in PyTorch: the
 env draws them before the kernel that reads them (``UpdateDraws``,
-``ObsDraws``). The env's device tables (the term table, int32 index
-tables, the heightfield's packed corners) are made at its first launch on
-a device, outside any capture.
+``ObsDraws``). The env's device tables (the term and column tables, int32
+index tables, the heightfield's packed corners, ``env_update``'s ticket)
+are made at its first launch on a device, outside any capture.
+
+``env_terms`` and ``env_update`` give a block of threads a group of
+consecutive envs (``env_geometry``) and stage its rows through shared
+memory; ``env_update`` sums the finished-episode accumulators itself, in
+the order ``fold_shares`` repeats. ``EnvTermsKernel(clocks=True)`` and
+``EnvUpdateKernel(clocks=True)`` bind each kernel's phase-clock build
+(``-DENV_PHASE_CLOCKS``, a library of its own): ``phase_cycles`` returns
+each block's clock cycles in each of the kernel's ``phases`` over one
+launch. ``chip_smoke.py``'s kernel-env phase prints their medians; no
+path of the program uses them.
 """
 
 from __future__ import annotations
@@ -41,7 +51,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # one rounding an operation, as the plain stages' PyTorch operations round
 NVCC_FLAGS = ("-fmad=false",)
 PARTS = {"reset": 1, "commands": 2, "all": 3}   # env_update's parts
+# the phase-clock build of a kernel (``_EnvKernel(clocks=True)``): a
+# library of its own; the production library is never built with it
+PHASE_CLOCK_FLAGS = ("-DENV_PHASE_CLOCKS",)
+PHASE_SLOTS = 8          # csrc/env_model.cuh kPhaseSlots
 SHARE_EXTRA = 6   # shares beyond the terms': reward, length, count, causes
+# env_terms and env_update: envs a block (at most; fewer where a block's
+# shared memory would not fit), threads a block (csrc/env_model.cuh
+# kBlockThreads; env_update's per-env logic takes three roles' worth of
+# envs) and the shared memory a block may have (227 KB on the H100). 16
+# envs on 256 threads: 256 blocks for 4096 envs, two an SM, one wave (the
+# geometries timed are in PERF.md)
+ENVS_PER_BLOCK = 16
+THREADS = 256
+THREADS_MAX = 256        # csrc/env_model.cuh kBlockThreads
+SMEM_LIMIT = 232448
 
 
 class Terms(NamedTuple):
@@ -136,6 +160,15 @@ def hfield_args(terrain, device):
              f32(R - 1.001), f32(C - 1.001)])
 
 
+def columns(env):
+    """``envs/cat.py`` ``column_table`` of the env's terms (its
+    ``ColumnTable``)."""
+    from cat_tpu_torch.envs.cat import column_table
+
+    return column_table(env.cset.descriptors, env.t2m.cpu().numpy(),
+                        env.illegal_ids.cpu().numpy())
+
+
 def env_tables(env, device) -> dict:
     """The env's device tables, made once a device (``env.kernel_tables``):
     a CUDA graph's capture may copy nothing from the host, and the step's
@@ -144,13 +177,122 @@ def env_tables(env, device) -> dict:
     tabs = env.kernel_tables.get(key)
     if tabs is None:
         cset = env.cset.device_table()
+        cols = columns(env)
         tabs = env.kernel_tables[key] = dict(
             t2m=env.t2m.to(device=device, dtype=torch.int32),
-            illegal=env.illegal_ids.to(device=device, dtype=torch.int32),
             hfield=hfield_args(env.cfg.terrain, device),
             update_floats=update_floats(env),
+            col_term=env.cset._col_term.to(device=device,
+                                           dtype=torch.int32),
+            # env_update's ticket: its last block sets it back to 0
+            ticket=torch.zeros(1, dtype=torch.int32, device=device),
+            **{f"col_{k}": torch.as_tensor(np.append(v, 0).astype(np.int32) if k in (
+                "slots", "illegal") else v, device=device)
+               for k, v in cols._asdict().items()},
+            n_slots=len(cols.slots), n_illegal=len(cols.illegal),
             **{f"term_{k}": v for k, v in cset.items()})
     return tabs
+
+
+class Geometry(NamedTuple):
+    """How ``env_terms`` and ``env_update`` cut n envs: envs a block,
+    threads a block, blocks, and each kernel's shared memory a block in
+    bytes."""
+    envs: int
+    threads: int
+    blocks: int
+    terms_bytes: int
+    update_bytes: int
+
+
+def _words(regions) -> int:
+    """4-byte words of shared memory regions of these word counts, each
+    rounded up to 16 bytes (``csrc/env_model.cuh`` ``Layout``)."""
+    return sum(-(-w // 4) * 4 for w in regions)
+
+
+def terms_smem(env, envs: int) -> int:
+    """Bytes of ``csrc/env_terms.cu``'s ``TermsLayout`` for blocks of
+    ``envs`` envs, region by region."""
+    m, K, E = env.model, env.cset.total_cols, envs
+    nj, nr, nf = m.nj, m.nreport, len(m.foot_report_ids)
+    tab = columns(env)
+    ns, n_given = len(tab.slots), given_width(env)
+    return 4 * _words([
+        5 * env.cset.n_terms, 3 * K, 2 * K, nj, ns, len(tab.illegal),
+        E * m.nq, E * m.nv,
+        E * nj, E * nj, E * 9 * nr, E * nf, E * 3, E * nj, E * nj,
+        E * n_given, E, -(-E * nf // 4), E * ns, E * 4, E * 2, E * K])
+
+
+def update_smem(env, envs: int) -> int:
+    """Bytes of ``csrc/env_update.cu``'s ``UpdateLayout`` for blocks of
+    ``envs`` envs, region by region."""
+    m, E = env.model, envs
+    K, nt, nj = env.cset.total_cols, env.cset.n_terms, m.nj
+    widths = [s[1] for s in sim_shapes(m, 1)]
+    return 4 * _words([
+        K, K, K, nt, -(-nt // 4), nt, 5 * nt, K, nj, nj, nj, 1, 1,
+        2 * nt + SHARE_EXTRA,
+        E * K, E, -(-E // 4), -(-E // 4), -(-E // 4), E * nt, E * nt, E,
+        E * 3, E, E * 2, E, E, E * nj, E * nj,
+        *(E * w for w in widths[:-1]), -(-E * widths[-1] // 4),
+        E * (3 + nj), E * 4, E * 4, E, E * 4, E, E, E * 2,
+        E * nt, E * (2 * nt + SHARE_EXTRA), E, E, E, E * m.nq, E * m.nv,
+        E * 3, E, E * m.nv])
+
+
+def env_geometry(n: int, env) -> Geometry:
+    """``Geometry`` of ``env_terms`` and ``env_update`` for n envs of
+    ``env``: ``ENVS_PER_BLOCK`` envs a block (4096 envs: 256 blocks, one
+    wave on the H100's 132 SMs), halved while a block's shared memory
+    would pass ``SMEM_LIMIT``."""
+    envs = ENVS_PER_BLOCK
+    while envs > 1 and max(terms_smem(env, envs),
+                           update_smem(env, envs)) > SMEM_LIMIT:
+        envs //= 2
+    terms_b, update_b = terms_smem(env, envs), update_smem(env, envs)
+    if max(terms_b, update_b) > SMEM_LIMIT:
+        raise ValueError(f"one env's rows take {max(terms_b, update_b)} B "
+                         f"of shared memory, more than {SMEM_LIMIT}")
+    return Geometry(envs, THREADS, -(-n // envs), terms_b, update_b)
+
+
+def given_width(env) -> int:
+    """Columns of the given block (the terms of their own functions)."""
+    tab = env.cset.descriptors
+    return int(sum(tab.ints[i][2] for i in tab.given))
+
+
+def fold_shares(shares: torch.Tensor, envs: int) -> torch.Tensor:
+    """The finished-episode accumulators' increments from every env's
+    shares (N, 2 n_terms + 6) as ``csrc/env_update.cu`` sums them, in
+    float32, one addition at a time: each block of ``envs`` consecutive
+    envs from 0 in env order, then the blocks' sums from 0 in block order.
+    (A ragged last block is padded with zeros: adding +0 to a sum that
+    starts at +0 changes no bit.) Returns (2 n_terms + 6,) float32 on the
+    CPU."""
+    x = shares.detach().to("cpu", torch.float32).numpy()
+    n, width = x.shape
+    blocks = -(-n // envs)
+    padded = np.zeros((blocks * envs, width), np.float32)
+    padded[:n] = x
+    padded = padded.reshape(blocks, envs, width)
+    part = np.zeros((blocks, width), np.float32)
+    for e in range(envs):
+        part = part + padded[:, e]
+    total = np.zeros(width, np.float32)
+    for b in range(blocks):
+        total = total + part[b]
+    return torch.from_numpy(total)
+
+
+def geometry(tabs: dict, n: int, env) -> Geometry:
+    """``env_geometry(n, env)``, kept in the env's device tables."""
+    key = ("geometry", n)
+    if key not in tabs:
+        tabs[key] = env_geometry(n, env)
+    return tabs[key]
 
 
 def update_floats(env) -> list:
@@ -220,11 +362,15 @@ def check_shapes(**tensors):
 class _EnvKernel:
     """ctypes binding of ``csrc/<prefix>.cu``. ``launches`` counts the
     kernel launches this wrapper made; nothing else changes it. The
-    library is built at the first launch (or by ``load``)."""
+    library is built at the first launch (or by ``load``).
+    ``clocks=True`` binds the phase-clock build instead
+    (``phase_cycles``); the module's own wrappers never do."""
 
     prefix = ""
+    phases: tuple = ()       # the kernel's phases, as its phase clocks count
 
-    def __init__(self):
+    def __init__(self, clocks: bool = False):
+        self.clocks = clocks
         self.launches = 0
         self.built: Optional[build.Built] = None
         self._lib = None
@@ -235,15 +381,55 @@ class _EnvKernel:
 
     def load(self) -> build.Built:
         if self._lib is None:
-            self.built = build.build_shared_library(self.source, NVCC_FLAGS)
+            self.built = build.build_shared_library(
+                self.source,
+                NVCC_FLAGS + (PHASE_CLOCK_FLAGS if self.clocks else ()))
             self._lib = ctypes.CDLL(str(self.built.path))
-            launch = getattr(self._lib, f"{self.prefix}_launch")
-            launch.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-            launch.restype = _I
-            err = getattr(self._lib, f"{self.prefix}_error_string")
-            err.argtypes = [_I]
-            err.restype = ctypes.c_char_p
+            for name, args, res in (
+                    ("launch", [_P, _P, _P, _I, _I, _I, _P], _I),
+                    ("error_string", [_I], ctypes.c_char_p)) + (
+                        (("blocks_per_sm", [_I, _I], _I),) if self.phases
+                        else ()) + (
+                        (("set_phase_cycles", [_P], _I),) if self.clocks
+                        else ()):
+                fn = getattr(self._lib, f"{self.prefix}_{name}")
+                fn.argtypes = args
+                fn.restype = res
         return self.built
+
+    def blocks_per_sm(self, device, threads: int, smem: int) -> int:
+        """Blocks of the kernel an SM of ``device`` holds at ``threads``
+        threads and ``smem`` bytes of shared memory a block (the CUDA
+        occupancy calculator)."""
+        self.load()
+        with torch.cuda.device(device):
+            n = getattr(self._lib, f"{self.prefix}_blocks_per_sm")(threads,
+                                                                   smem)
+        if n < 0:
+            raise RuntimeError(f"{self.prefix} occupancy query failed")
+        return n
+
+    def phase_cycles(self, blocks: int, device, call) -> torch.Tensor:
+        """int64 (blocks, len(phases)): each block's clock64() cycles in
+        each phase of the one launch ``call()`` makes (the phase-clock
+        build), for a launch of at most ``blocks`` blocks."""
+        if not self.clocks:
+            raise RuntimeError("phase clocks need the kernel's clocks=True "
+                               "wrapper")
+        self.load()
+        buf = torch.zeros(blocks, PHASE_SLOTS, dtype=torch.int64,
+                          device=device)
+        set_cycles = getattr(self._lib, f"{self.prefix}_set_phase_cycles")
+        with torch.cuda.device(device):
+            if set_cycles(buf.data_ptr()) != 0:
+                raise RuntimeError("setting the phase clocks failed")
+            try:
+                call()
+                torch.cuda.synchronize(device)
+            finally:
+                if set_cycles(None) != 0:
+                    raise RuntimeError("clearing the phase clocks failed")
+        return buf[:, :len(self.phases)]
 
     def _launch(self, device: torch.device, ptrs, ints, floats):
         """Launch over ``ptrs`` ((tensor or None, dtype) pairs), ``ints``
@@ -282,6 +468,7 @@ class EnvTermsKernel(_EnvKernel):
     """``csrc/env_terms.cu``: ``CatEnv.terms_stage``."""
 
     prefix = "env_terms"
+    phases = ("staging", "per-env logic", "columns", "maxima", "write-back")
 
     def __call__(self, env, state, sim, action, prev_action) -> Terms:
         m, cset, cfg = env.model, env.cset, env.cfg
@@ -293,6 +480,7 @@ class EnvTermsKernel(_EnvKernel):
                      episode_len=(state.episode_len, (n,)),
                      common_step=(state.common_step, ()))
         tabs = env_tables(env, dev)
+        geo = geometry(tabs, n, env)
         given = None
         if cset.descriptors.given:
             # the terms outside the kernel's kinds, by their own functions
@@ -313,13 +501,16 @@ class EnvTermsKernel(_EnvKernel):
             (c(sim.touchdown), B), (c(sim.last_air_time), F),
             (c(state.command), F), (c(action), F), (c(prev_action), F),
             (c(state.episode_len), I32), (c(state.common_step), I32),
-            (tabs["t2m"], I32), (c(env.default_joint_pos_task), F),
-            (tabs["illegal"], I32), (tabs["term_ints"], I32),
-            (tabs["term_floats"], F), (tabs["term_ids"], I32), (given, F),
+            (c(env.default_joint_pos_task), F), (tabs["term_ints"], I32),
+            (tabs["col_ints"], I32),
+            (tabs["col_floats"], F), (tabs["col_slots"], I32),
+            (tabs["col_illegal"], I32), (given, F),
             *((t, t.dtype) for t in res[:6]), (res.col_max, I32)], [
-            n, m.nq, m.nv, m.nj, m.nreport, len(m.foot_report_ids),
-            len(env.illegal_ids), cset.n_terms, K,
-            0 if given is None else given.shape[1], cfg.max_episode_length], [
+            n, geo.envs, geo.threads, geo.terms_bytes, m.nq, m.nv, m.nj,
+            m.nreport, len(m.foot_report_ids), tabs["n_slots"],
+            tabs["n_illegal"], cset.n_terms, K,
+            0 if given is None else given.shape[1],
+            cfg.max_episode_length], [
             f32(cfg.terminations.contact_threshold),
             f32(cfg.terminations.upside_down_limit), recip(cfg.step_dt)])
         return res._replace(col_max=res.col_max.view(F))
@@ -329,14 +520,21 @@ class EnvUpdateKernel(_EnvKernel):
     """``csrc/env_update.cu``: ``CatEnv.update_stage``."""
 
     prefix = "env_update"
+    phases = ("staging", "columns", "per-env logic", "fold", "copy",
+              "write-back")
 
     def __call__(self, env, state, sim, action, prev_action, terms: Terms,
-                 draws: UpdateDraws, part: str = "all") -> Updated:
+                 draws: UpdateDraws, part: str = "all",
+                 shares: Optional[torch.Tensor] = None) -> Updated:
+        """``shares``: where given, an (N, 2 n_terms + 6) float32 tensor
+        the kernel writes every env's shares of the accumulators into (a
+        check of ``fold_shares``)."""
         m, cset, cfg = env.model, env.cset, env.cfg
         ev = cfg.events
         bits = PARTS[part]
         n, dev = action.shape[0], action.device
         nt, K = cset.n_terms, cset.total_cols
+        P = 2 * nt + SHARE_EXTRA
         check_shapes(
             sim=(sim, sim_shapes(m, n)), action=(action, (n, m.nj)),
             prev_action=(prev_action, (n, m.nj)),
@@ -350,9 +548,14 @@ class EnvUpdateKernel(_EnvKernel):
             origin=(state.origin, (n, 2)),
             terrain_row=(state.terrain_row, (n,)),
             terrain_col=(state.terrain_col, (n,)),
+            acc_viol=(state.acc_viol, (nt,)),
+            acc_prob=(state.acc_prob, (nt,)), acc_rew=(state.acc_rew, ()),
+            acc_len=(state.acc_len, ()), acc_count=(state.acc_count, ()),
+            acc_term=(state.acc_term, (3,)), shares=(shares, (n, P)),
             draws=(draws, ((n, 3 + m.nj), (n, 4), (n, 4), (n,), (n, 4),
                            (n,), (n,), (n, 2))))
         tabs = env_tables(env, dev)
+        geo = geometry(tabs, n, env)
         tmpl = env._reset_template(n)
         sim = type(sim)(*(t.contiguous() for t in sim))
 
@@ -364,13 +567,15 @@ class EnvUpdateKernel(_EnvKernel):
             o = dict(running_max=out(K), max_p=out(nt), reward=out(n),
                      dones=out(n), episode_viol=out(n, nt),
                      episode_prob=out(n, nt), episode_rew=out(n),
-                     shares=out(n, 2 * nt + SHARE_EXTRA),
                      episode_len=out(n, dtype=I32), action=out(n, m.nj),
                      prev_action=out(n, m.nj), origin=out(n, 2),
                      terrain_row=out(n, dtype=I32))
+            acc = dict(acc_viol=out(nt), acc_prob=out(nt), acc_rew=out(),
+                       acc_len=out(), acc_count=out(), acc_term=out(3))
+            partials = out(geo.blocks, P)
         else:
             sim_out = sim._replace(qvel=torch.empty_like(sim.qvel))
-            o = {}
+            o, acc, partials = {}, {}, None
         if bits & PARTS["commands"]:
             o.update(command=out(n, 3), command_time_left=out(n))
         table, (rows, cols), hf = tabs["hfield"]
@@ -380,6 +585,7 @@ class EnvUpdateKernel(_EnvKernel):
             (terms.illegal, B), (terms.upside, B),
             (c(state.running_max), F), (cset._init_max_p, F),
             (tabs["term_is_cur"], torch.uint8), (tabs["term_ints"], I32),
+            (tabs["col_term"], I32),
             (c(state.episode_viol), F), (c(state.episode_prob), F),
             (c(state.episode_rew), F), (c(state.command), F),
             (c(state.command_time_left), F), (c(state.origin), F),
@@ -387,11 +593,14 @@ class EnvUpdateKernel(_EnvKernel):
             (c(action), F), (c(prev_action), F),
             *((t, t.dtype) for t in sim), *((t, t.dtype) for t in tmpl),
             (env._qj_default, F), (env._qj_lo, F), (env._qj_hi, F),
-            (table, F), *((c(d), F) for d in draws)]
+            (table, F), *((c(d), F) for d in draws),
+            *((c(t), F) for t in (state.acc_viol, state.acc_prob,
+                                  state.acc_rew, state.acc_len,
+                                  state.acc_count, state.acc_term))]
         ptrs += [(o.get(k), I32 if k in ("episode_len", "terrain_row") else F)
                  for k in ("running_max", "max_p", "reward", "dones",
                            "episode_viol", "episode_prob", "episode_rew",
-                           "shares", "episode_len", "action", "prev_action",
+                           "episode_len", "action", "prev_action",
                            "command", "command_time_left", "origin",
                            "terrain_row")]
         if bits & PARTS["reset"]:
@@ -399,9 +608,14 @@ class EnvUpdateKernel(_EnvKernel):
         else:
             ptrs += [(sim_out.qvel if k == "qvel" else None, F)
                      for k in type(sim)._fields]
+        ptrs += [(acc.get(k), F) for k in ("acc_viol", "acc_prob", "acc_rew",
+                                           "acc_len", "acc_count",
+                                           "acc_term")]
+        ptrs += [(partials, F), (tabs["ticket"] if partials is not None
+                                 else None, I32), (shares, F)]
         terr = cfg.terrain
         self._launch(dev, ptrs, [
-            n, bits, nt, K, m.nj,
+            n, geo.envs, geo.threads, geo.update_bytes, bits, nt, K, m.nj,
             int(cfg.terrain_curriculum and terr.kind == "hfield"),
             terr.rows, int(ev.push_enabled), *(t.shape[1] for t in sim),
             rows, cols], [*hf, *tabs["update_floats"]])
@@ -409,14 +623,6 @@ class EnvUpdateKernel(_EnvKernel):
             return Updated(**dict.fromkeys(Updated._fields, None))._replace(
                 sim=sim_out, command=o["command"],
                 command_time_left=o["command_time_left"])
-        # the finished-episode accumulators: the envs' shares summed
-        tot = torch.sum(o.pop("shares"), dim=0)
-        acc = dict(acc_viol=state.acc_viol + tot[:nt],
-                   acc_prob=state.acc_prob + tot[nt:2 * nt],
-                   acc_rew=state.acc_rew + tot[2 * nt],
-                   acc_len=state.acc_len + tot[2 * nt + 1],
-                   acc_count=state.acc_count + tot[2 * nt + 2],
-                   acc_term=state.acc_term + tot[2 * nt + 3:])
         o.setdefault("command", None)
         o.setdefault("command_time_left", None)
         return Updated(sim=sim_out, **o, **acc)

@@ -8,8 +8,9 @@ Phases, each printed with its elapsed seconds:
   build: the eight kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu,
      contact_rows.cu, substep_post.cu, env_terms.cu, env_update.cu and
      env_obs.cu, and the phase-clock builds of the three substep kernels
-     (-DSUBSTEP_PHASE_CLOCKS, libraries of their own), one plain nvcc
-     each, started together, with ptxas's registers, stack and spills;
+     (-DSUBSTEP_PHASE_CLOCKS) and of env_terms and env_update
+     (-DENV_PHASE_CLOCKS), libraries of their own, one plain nvcc each,
+     started together, with ptxas's registers, stack and spills;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
      N = 4096, on contact problems captured from the port's flat Solo12 env
      (36 contacts) and from its Go2 env (28 contacts), on seeded random
@@ -66,10 +67,15 @@ Phases, each printed with its elapsed seconds:
      ``measure.compare_env``, the largest error of each printed, each
      decision that came out otherwise with its margin in float32
      spacings (at most 4); two launches from one input equal bit for
-     bit; each kernel's time as CUDA-graph replays (50), the plain
-     stage's replayed, the bound of ``measure.env_counts`` (each terrain
-     cell the step reads counted once) and its share, beside the card's
-     name and power limit; last each kernel's ptxas registers and spills;
+     bit; one launch of env_terms' and env_update's phase-clock builds,
+     the median cycles a block of each phase (and the largest block's);
+     each kernel's time as CUDA-graph replays (50), the plain stage's
+     replayed, the bound of ``measure.env_counts`` (each terrain cell the
+     step reads counted once) and its share, beside the card's name and
+     power limit; last each kernel's ptxas registers and spills, and
+     env_terms' and env_update's shared memory a block and blocks an SM
+     at Solo12's shape (``env_step.env_geometry``): 4096 envs must run in
+     one wave, and neither may spill;
   graph: the control step's CUDA graph (``Engine.__call__`` on the card)
      against the eager substep loop (``Engine._eager``) in each engine
      configuration the port runs: the flat env's block-Jacobi engine at
@@ -1285,6 +1291,41 @@ def kernel_post_phase(dev, smi):
     return row
 
 
+ENV_CLOCK_KERNELS: dict = {}
+
+
+def env_clock_kernels() -> dict:
+    """name -> a wrapper of the phase-clock build of ``env_terms`` and
+    ``env_update`` (never on a path)."""
+    from cat_tpu_torch.ops import env_step
+
+    if not ENV_CLOCK_KERNELS:
+        ENV_CLOCK_KERNELS.update(
+            (name, type(kernel)(clocks=True))
+            for name, kernel in env_step.ENV_KERNELS if kernel.phases)
+    return ENV_CLOCK_KERNELS
+
+
+def env_phase_clocks(phase, label, name, call, dev):
+    """One launch of the phase-clock build of env kernel ``name`` on the
+    inputs of ``call`` (a partial of the production wrapper); logs each
+    phase's median cycles a block (and its largest) over the blocks of
+    the launch, and returns the medians with the median total."""
+    kernel = env_clock_kernels()[name.split("[")[0]]
+    cyc = kernel.phase_cycles(N_ENVS, dev, lambda: kernel(
+        *call.args, **call.keywords))
+    cyc = cyc[cyc.sum(dim=1) > 0].double()
+    med = dict(zip(kernel.phases, cyc.median(dim=0).values.tolist()))
+    top = dict(zip(kernel.phases, cyc.max(dim=0).values.tolist()))
+    med["total"] = cyc.sum(dim=1).median().item()
+    top["total"] = cyc.sum(dim=1).max().item()
+    log(phase, f"{label} {name} phase clocks (median cycles a block over "
+               f"{cyc.shape[0]} blocks, the largest in brackets; the "
+               f"-DENV_PHASE_CLOCKS build): " + ", ".join(
+                   f"{p} {c:.0f} ({top[p]:.0f})" for p, c in med.items()))
+    return med
+
+
 def bundle_policy(run, dev):
     """The mean action of the JAX-trained policy bundle under runs/``run``
     on an observation's first 45 entries, plus noise of 0.3 from a seeded
@@ -1340,6 +1381,8 @@ def kernel_env_phase(dev, smi):
             if not cmp.ok or not same:
                 raise RuntimeError(f"{name} disagrees with its plain stage "
                                    f"({label})")
+            if name != "env_obs":
+                env_phase_clocks(phase, label, name, call, dev)
             ms = measure.graph_ms(call, 50)
             plain_ms = measure.graph_ms(plain, 5)
             byts, flops = counts[name]
@@ -1361,7 +1404,51 @@ def kernel_env_phase(dev, smi):
         log(phase, f"{name}: {kernel.built.path.name}; ptxas {res}; "
                    f"launches in this phase {kernel.launches} (not counted: "
                    f"a comparison)")
+    env_resources(phase, dev)
     return rows
+
+
+def env_resources(phase, dev):
+    """kernel-env: env_terms' and env_update's ptxas registers and spills
+    (and their clock builds'), shared memory a block and blocks an SM at
+    Solo12's shape and N_ENVS (``env_step.env_geometry``); fails unless
+    N_ENVS envs run in one wave and neither production kernel spills."""
+    import torch
+
+    from cat_tpu_torch.ops import build, env_step
+    from cat_tpu_torch.tasks import solo12_flat
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = env_step.env_geometry(N_ENVS, solo12_flat.make_env(
+        8, device=torch.device("cpu")))
+    bad = []
+    for name, kernel in env_step.ENV_KERNELS:
+        if not kernel.phases:
+            continue
+        clocked = env_clock_kernels()[name].load()
+        for fn, r in build.ptxas_resources(clocked.log).items():
+            log(phase, f"{name} (phase-clock build): {fn}: "
+                       f"{r['registers']} registers, {r['spill_stores']} B "
+                       f"spill stores, {r['spill_loads']} B spill loads")
+        for fn, r in build.ptxas_resources(kernel.built.log).items():
+            log(phase, f"{name}: {fn}: {r['registers']} registers, "
+                       f"{r['spill_stores']} B spill stores, "
+                       f"{r['spill_loads']} B spill loads, {r['stack']} B "
+                       f"stack frame")
+            if r["spill_stores"] or r["spill_loads"]:
+                bad.append(f"{fn} spills")
+        smem = geo.terms_bytes if name == "env_terms" else geo.update_bytes
+        per_sm = kernel.blocks_per_sm(dev, geo.threads, smem)
+        waves = -(-geo.blocks // (per_sm * sms))
+        log(phase, f"{name} at Solo12's shape: {smem} B of shared memory a "
+                   f"block of {geo.envs} envs and {geo.threads} threads, "
+                   f"{per_sm} blocks an SM (occupancy calculator); {N_ENVS} "
+                   f"envs = {geo.blocks} blocks over {sms} SMs x {per_sm} = "
+                   f"{per_sm * sms} slots: {waves} wave(s)")
+        if waves != 1:
+            bad.append(f"{name} takes {waves} waves")
+    if bad:
+        raise RuntimeError(f"env kernels' resources: {bad}")
 
 
 def graph_configs(dev):
@@ -1978,7 +2065,7 @@ def main() -> int:
 
     kernels = (pgs.KERNEL, pgs.GS_KERNEL,
                *(k for _, k in substep_kernels() + substep_kernels(True)
-                 + env_step.ENV_KERNELS))
+                 + env_step.ENV_KERNELS), *env_clock_kernels().values())
     with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc a source
         builds = list(pool.map(lambda k: k.load(), kernels))
     for built in builds:

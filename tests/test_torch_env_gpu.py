@@ -14,8 +14,14 @@ replayed against ``_step_eager`` (the kernels) bit for bit; and the Go2
 configuration with a reset and an interval event term (tests/_torch_steps.py
 go2-dr, where the reset term splits env_update in two), the kernel path
 against the plain path over one step; and a task with a term of its own
-function (the given columns) beside the kinds the kernels compute. These
-tests need a card and skip without one; the file imports no JAX:
+function (the given columns) beside the kinds the kernels compute. Then
+env_terms and env_update at ragged N (1, 33, 4095: a last block of 1, 1
+and 31 envs) against their plain stages; env_update's accumulators
+against ``env_step.fold_shares`` of its envs' shares (the order it sums
+them in) bit for bit, and the shares against the plain stage's; and its
+ticket back at 0 after a launch and after each of three CUDA-graph
+replays, the replays equal bit for bit. These tests need a card and skip
+without one; the file imports no JAX:
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_env_gpu.py
 """
@@ -188,6 +194,112 @@ def test_a_term_outside_the_kinds_through_the_given_block(cuda):
     for name, (out, ref, margins, *_) in pairs.items():
         cmp = measure.compare_env(out, ref, margins)
         assert cmp.ok, f"{name}: {cmp.text}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 33, 4095])
+def test_kernels_at_ragged_n(cuda, n):
+    """env_terms and env_update on Solo12 rough (the curriculum, the
+    spawn height) at n envs after 30 steps, within compare_env, and a
+    second launch bit for bit."""
+    env = solo12_rough.make_env(n, device=cuda)
+    inputs = measure.env_inputs(env, n, STEPS,
+                                policy("solo12_flat_2000it", cuda))
+    pairs = measure.env_stage_pairs(env, *inputs)
+    for name in ("env_terms", "env_update"):
+        out, ref, margins, call, _ = pairs[name]
+        cmp = measure.compare_env(out, ref, margins)
+        assert cmp.ok, f"{name} at {n}: {cmp.text}"
+        assert all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(out), pytree.tree_leaves(call())))
+
+
+def plain_shares(env, state, terms, up):
+    """Each env's shares of the accumulators (N, 2 n_terms + 6) as the
+    plain stage (``CatEnv._update_reset``) forms them before its sums."""
+    cset = env.cset
+    max_p = cset.curriculum_max_p(terms.common_step, env.cfg.curriculum_steps)
+    _, _, term_probs, viol = cset.transform(terms.raw, terms.col_max,
+                                            state.running_max, max_p)
+    ill, upside, to = terms.illegal, terms.upside, terms.time_out
+    rf = (ill | upside | to).float()
+    ep = torch.clamp(terms.episode_len.float(), min=1.0)[:, None]
+    er = state.episode_rew + up.reward
+    return torch.cat([
+        rf[:, None] * (state.episode_viol + viol.float()) / ep * 100.0,
+        rf[:, None] * (state.episode_prob + term_probs) / ep,
+        torch.stack([rf * er, rf * terms.episode_len, rf, ill.float(),
+                     (upside & ~ill).float(),
+                     (to & ~(ill | upside)).float()], dim=1)], dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_accumulators_fold_the_shares_in_the_kernel_order(cases, case):
+    """The kernel's six accumulators are the incoming ones plus
+    ``fold_shares`` of its envs' shares, bit for bit; its shares are the
+    plain stage's within 8 float32 spacings of a column's largest, and
+    where a column's shares are equal bit for bit so is its accumulator
+    to the fold of the plain shares."""
+    env, (state, action, gen) = cases[case]
+    pairs = measure.env_stage_pairs(env, state, action, gen)
+    _, ref, _, call, _ = pairs["env_update"]
+    args = call.args[1:]                  # (state, sim, ..., terms, draws)
+    st, terms = args[0], args[4]
+    nt = env.cset.n_terms
+    shares = torch.full((N, 2 * nt + env_step.SHARE_EXTRA), float("nan"),
+                        device=action.device)
+    up = env_step.ENV_UPDATE(env, *args, **call.keywords, shares=shares)
+    envs = env_step.env_geometry(N, env).envs
+    acc_in = (st.acc_viol, st.acc_prob, st.acc_rew, st.acc_len,
+              st.acc_count, st.acc_term)
+    acc_out = (up.acc_viol, up.acc_prob, up.acc_rew, up.acc_len,
+               up.acc_count, up.acc_term)
+    edges = np.cumsum([0, nt, nt, 1, 1, 1, 3])
+
+    def accumulate(sh):
+        tot = env_step.fold_shares(sh, envs)
+        return [(a.cpu() + tot[lo:hi].reshape(a.shape))
+                for a, lo, hi in zip(acc_in, edges[:-1], edges[1:])]
+
+    for got, want in zip(acc_out, accumulate(shares)):
+        assert torch.equal(got.cpu(), want)
+    plain = plain_shares(env, st, terms, ref)
+    tol = 8 * 2.0 ** -24 * plain.abs().amax(0)
+    assert bool(((shares - plain).abs() <= tol).all())
+    same = (shares == plain).all(0).cpu()
+    for got, want, lo, hi in zip(acc_out, accumulate(plain), edges[:-1],
+                                 edges[1:]):
+        if bool(same[lo:hi].all()):
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_ticket_is_back_at_zero_after_launches_and_replays(cases):
+    """env_update's ticket (its last block's) reads 0 after an eager
+    launch and after each of three replays of a CUDA graph of it; the
+    replays give the eager launch's outputs bit for bit."""
+    env, (state, action, gen) = cases["flat"]
+    _, _, _, call, _ = measure.env_stage_pairs(env, state, action,
+                                               gen)["env_update"]
+    ticket = env_step.env_tables(env, action.device)["ticket"]
+    eager = pytree.tree_leaves(call())
+    torch.cuda.synchronize()
+    assert int(ticket.item()) == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(ticket.item()) == 0
+        assert all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(out), eager))
 
 
 class _Step(tuple):

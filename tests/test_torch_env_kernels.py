@@ -29,6 +29,18 @@ one list of numpy uniforms, and each env's physics step returns that state
     rebuilt from the table alone (the kernels' view of the terms, a
     task's own PyTorch function for a term outside the kernels' kinds)
     the raw columns equal ``ConstraintSet.raw`` bit for bit;
+  * the column table env_terms reads (``envs/cat.py`` ``column_table``),
+    evaluated column by column from a SimState's rows the way the kernel
+    reads them (the joint, foot or staged report slot of each row, the
+    slots in contact as a mask), equals ``ConstraintSet.raw`` bit for bit
+    for every registered task and for a task with a term of its own
+    function, and on the stepped states the JAX package's raw columns
+    within the tolerances above;
+  * ``env_geometry`` covers every env with its blocks and keeps each
+    kernel's shared memory a block under 227 KB for every registered
+    task; ``fold_shares`` (the order in which env_update sums the
+    accumulators) is a one-by-one float32 sum in that order, bit for bit,
+    and within (N - 1) unit roundoffs of the float64 sum;
   * the measuring side: ``measure.env_counts`` counts each heightfield
     cell a step reads once, and ``measure.plain_stages`` records a step's
     stages without changing what the step gives.
@@ -371,6 +383,201 @@ def test_a_term_outside_the_kinds_goes_through_the_given_block():
     data = _random_data(env, np.random.default_rng(4))
     assert torch.equal(_raw_from_table(env.cset, data), env.cset.raw(data))
 
+
+
+def _raw_from_columns(env, sim, command, action, prev_action):
+    """The raw columns as env_terms reads the column table: a row a
+    column, its kind, its id (a qpos or qvel place, a model or task
+    joint, a foot, a staged report slot or a mask of them, a given
+    column) and its term's two float32 numbers, from the SimState's rows
+    in the model's joint order; each staged slot's history norm once, the
+    slots in contact (norm > 1) once."""
+    from cat_tpu_torch.envs.cat import column_table
+
+    cset = env.cset
+    tab = column_table(cset.descriptors, env.t2m.numpy(),
+                       env.illegal_ids.numpy())
+    n = action.shape[0]
+    hist = sim.force_hist.reshape(n, 3, env.model.nreport, 3)
+    norms = torch.amax(torch.linalg.vector_norm(
+        hist[:, :, torch.as_tensor(tab.slots, dtype=torch.long)], dim=-1),
+        dim=1)
+    contact = norms > 1.0
+    data = env.step_data(sim, command, action, prev_action)
+    g = data.projected_gravity
+    cmd_norm = torch.linalg.vector_norm(command, dim=-1)
+    djp = env.default_joint_pos_task
+    given = (cset.raw(data, [cset.terms[i] for i in cset.descriptors.given])
+             if cset.descriptors.given else None)
+    K = {f.__name__: k for k, (f, _, _) in enumerate(KERNEL_TERMS)}
+    cols = []
+    for (kind, a, b), (p0, p1) in zip(tab.ints.tolist(),
+                                      tab.floats.tolist()):
+        mask = (a & 0xffffffff) | ((b & 0xffffffff) << 32)
+        places = [s for s in range(len(tab.slots)) if mask >> s & 1]
+        name = KERNEL_TERMS[kind][0].__name__ if kind != GIVEN else "given"
+        v = {
+            "joint_position": lambda: torch.abs(sim.qpos[:, a]) - p0,
+            "joint_position_when_moving_forward": lambda: (
+                torch.abs(sim.qpos[:, a] - djp[b]) - p0)
+            * (torch.abs(command[:, 1]) < p1).float(),
+            "joint_torque": lambda: torch.abs(sim.applied_torque[:, a]) - p0,
+            "joint_velocity": lambda: torch.abs(sim.qvel[:, a]) - p0,
+            "joint_acceleration": lambda: torch.abs(sim.joint_acc[:, a]) - p0,
+            "upsidedown": lambda: (g[:, 2] > p0).float(),
+            "contact": lambda: contact[:, places].any(dim=1).float(),
+            "base_orientation": lambda: torch.linalg.vector_norm(
+                g[:, :2], dim=1) - p0,
+            "air_time": lambda: (p0 - sim.last_air_time[:, a])
+            * sim.touchdown[:, a].float() * (cmd_norm > p1).float(),
+            "n_foot_contact": lambda: torch.abs(
+                contact[:, places].sum(dim=1).float() - p0)
+            * (cmd_norm > p1).float(),
+            "joint_range": lambda: torch.abs(sim.qpos[:, a] - djp[b]) - p0,
+            "action_rate": lambda: torch.abs(action[:, a] - prev_action[:, a])
+            / env.cfg.step_dt - p0,
+            "foot_contact_force": lambda: norms[:, a] - p0,
+            "min_base_height": lambda: p0 - sim.qpos[:, 2],
+            "no_move": lambda: (torch.abs(sim.qvel[:, a]) - p0)
+            * (cmd_norm < p1).float(),
+            "given": lambda: given[:, a],
+        }[name]()
+        assert name == "given" or kind == K[name]
+        cols.append(v)
+    return torch.stack(cols, dim=1)
+
+
+def _random_sim(env, rng, n=16):
+    """A random post-physics SimState of ``env``'s model, forces large
+    enough that some report slots are in contact, touchdown bytes."""
+    from cat_tpu_torch.ops.env_step import sim_shapes
+
+    shapes = sim_shapes(env.model, n)
+    fields = [torch.from_numpy(rng.normal(0, s, sh).astype(np.float32))
+              for s, sh in zip((0.5, 5.0, 1.0, 5.0, 500.0, 10.0, 1.0, 0.3,
+                                0.3, 0.3, 0.3, 1.0), shapes)]
+    q = fields[0]
+    q[:, 3:7] = q[:, 3:7] / torch.linalg.vector_norm(q[:, 3:7], dim=1,
+                                                     keepdim=True)
+    nr = env.model.nreport
+    big = rng.choice([0.3, 30.0], (n, 1, nr, 1), p=[0.92, 0.08])
+    fields[6] = torch.abs(fields[6]) * torch.from_numpy(np.broadcast_to(
+        big, (n, 3, nr, 3)).reshape(shapes[6]).astype(np.float32))
+    fields[11] = fields[11] > 0
+    return SimState(*fields)
+
+
+@pytest.mark.parametrize("task", sorted(registry.list_tasks()))
+def test_column_table_gives_the_raw_columns_of_every_registered_task(task):
+    env = registry.get(task).make_env(num_envs=4, device="cpu")
+    rng = np.random.default_rng(5)
+    n, nj = 16, env.model.nj
+    sim = _random_sim(env, rng, n)
+    command = torch.from_numpy(rng.normal(0, 0.5, (n, 3)).astype(np.float32))
+    command[:3] = 0.0                      # below every deadzone
+    action, prev = (torch.from_numpy(rng.normal(0, 1, (n, nj)).astype(
+        np.float32)) for _ in range(2))
+    data = env.step_data(sim, command, action, prev)
+    ref = env.cset.raw(data)
+    got = _raw_from_columns(env, sim, command, action, prev)
+    assert torch.equal(got, ref)
+    # every kind of the task's terms took part, contacts both ways
+    assert 0 < int(ref[:, 48].sum()) < n
+
+
+def test_column_table_of_a_task_with_a_term_of_its_own_function():
+    base = port_env(deterministic_cfgs(8)[1])
+    joints = base.cset.terms[0].params["joint_ids"].numpy()
+    terms = [t._replace(params={k: (v.numpy() if isinstance(v, torch.Tensor)
+                                    else v) for k, v in t.params.items()})
+             for t in base.cset.terms] + [
+        ConstraintTerm("tilt", _tilt, dict(gain=3.0), 0.25, True),
+        ConstraintTerm("joint_range", C.joint_range,
+                       dict(limit=0.3, joint_ids=joints), 0.25, True),
+        ConstraintTerm("min_base_height", C.min_base_height,
+                       dict(limit=0.2), 1.0, False),
+        ConstraintTerm("feet_pairs", C.n_foot_contact,
+                       dict(number_of_desired_feet=2.0, min_command_value=0.1,
+                            body_ids=np.array([3, 3, 6])), 0.25, True)]
+    env = tenv.CatEnv(base.model, base.cfg, terms,
+                      SOLO12_ACTUATED_JOINT_ORDER, device="cpu")
+    # the repeated slot's count is no mask: that term is given too
+    assert env.cset.descriptors.given == (13, 16)
+    rng = np.random.default_rng(6)
+    sim = _random_sim(env, rng)
+    command = torch.from_numpy(rng.normal(0, 0.5, (16, 3)).astype(np.float32))
+    action, prev = (torch.from_numpy(rng.normal(0, 1, (16, 12)).astype(
+        np.float32)) for _ in range(2))
+    data = env.step_data(sim, command, action, prev)
+    assert torch.equal(_raw_from_columns(env, sim, command, action, prev),
+                       env.cset.raw(data))
+
+
+def test_column_table_on_the_stepped_states_matches_the_jax_terms(stepped):
+    kind, je, te, _, _, (js, ts, jsim, tsim, action) = stepped
+    dj = je._step_data(jsim, js.command, jnp.asarray(action), js.action)
+    raw_j = np.asarray(jnp.concatenate(
+        [jax_as_2d(t.func(dj, **t.params)) for t in je.cset.terms], 1))
+    got = _raw_from_columns(te, tsim, ts.command, torch.from_numpy(action),
+                            ts.action)
+    np.testing.assert_allclose(got.numpy(), raw_j, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4095, 4096])
+def test_env_geometry_covers_every_env_within_shared_memory(n):
+    from cat_tpu_torch.ops import env_step
+
+    for task in sorted(registry.list_tasks()):
+        env = registry.get(task).make_env(num_envs=4, device="cpu")
+        geo = env_step.env_geometry(n, env)
+        assert (geo.blocks - 1) * geo.envs < n <= geo.blocks * geo.envs
+        assert geo.threads >= 3 * geo.envs and geo.threads % 32 == 0
+        assert 0 < geo.terms_bytes <= 227 * 1024
+        assert 0 < geo.update_bytes <= 227 * 1024
+        assert geo.terms_bytes % 16 == geo.update_bytes % 16 == 0
+        if n == 4096:
+            # one wave on the H100's 132 SMs, two blocks an SM: the shared
+            # memory of two blocks (and the 1 KB the card keeps a block)
+            # within an SM's 228 KB
+            assert geo.blocks <= 2 * 132
+            assert 2 * (max(geo.terms_bytes, geo.update_bytes) + 1024) \
+                <= 228 * 1024
+
+
+def test_the_geometry_sweep_takes_only_geometries_the_kernels_take():
+    """``tools/env_kernel_sweep.py``'s geometries: envs x threads, threads
+    whole warps, at least three envs' worth (env_update's roles) and no
+    more than the kernels' launch bound."""
+    from cat_tpu_torch.tools.env_kernel_sweep import parse_geometries
+
+    assert parse_geometries("16x256,32x96") == ((16, 256), (32, 96))
+    for bad in ("16x32", "16x100", "0x64", "8x512"):
+        with pytest.raises(ValueError):
+            parse_geometries(bad)
+
+
+def test_fold_shares_sums_in_the_kernel_s_order():
+    from cat_tpu_torch.ops.env_step import fold_shares
+
+    rng = np.random.default_rng(8)
+    n, width, envs = 77, 32, 32
+    x = (rng.uniform(0, 1, (n, width))
+         * 10.0 ** rng.integers(-3, 4, (n, width))).astype(np.float32)
+    got = fold_shares(torch.from_numpy(x), envs).numpy()
+    # one float32 addition at a time: each block from 0 in env order, then
+    # the blocks from 0 in block order
+    want = np.zeros(width, np.float32)
+    for j in range(width):
+        total = np.float32(0.0)
+        for b0 in range(0, n, envs):
+            part = np.float32(0.0)
+            for e in range(b0, min(b0 + envs, n)):
+                part = np.float32(part + x[e, j])
+            total = np.float32(total + part)
+        want[j] = total
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    exact = x.astype(np.float64).sum(0)
+    assert np.all(np.abs(got - exact) <= (n - 1) * 2.0 ** -24 * exact)
 
 
 @pytest.mark.parametrize("kernel", ["env_terms", "env_update", "env_obs"])
