@@ -565,20 +565,28 @@ class CatEnv:
         return UpdateDraws(**draws)
 
     def _obs_draws(self, gen, n: int) -> ObsDraws:
-        """The observation noise, in its columns' order: each part's
-        U(-mag, mag) (``_uniform``), None where a part has none."""
-        nz, nj = self.cfg.noise, self.num_actions
-        hs = self.cfg.height_scan
+        """The observation noise, in its columns' order: each noisy part's
+        raw U(0, 1) draw (``_rand``, the draws ``_uniform`` made before it
+        applied its affine), None where a part has none, with each part's
+        affine to U(-mag, mag) (``ObsDraws.uniform``)."""
+        mags = self.obs_noise()
+        return ObsDraws.uniform(
+            [None if mag is None else self._rand(gen, n, width)
+             for mag, width in zip(mags, self.obs_noise_widths())], mags)
 
-        def draw(mag, width):
-            if not nz.enabled or mag == 0.0:
-                return None
-            return self._uniform(gen, (n, width), -mag, mag)
+    def obs_noise(self) -> tuple:
+        """The five noisy parts' noise magnitudes, in the columns' order
+        (the angular velocity, the projected gravity, the joints' positions
+        and velocities, the scan), None where a part has none."""
+        nz, hs = self.cfg.noise, self.cfg.height_scan
+        mags = (nz.ang_vel, nz.gravity, nz.joint_pos, nz.joint_vel,
+                hs.noise if hs is not None else 0.0)
+        return tuple(None if not nz.enabled or m == 0.0 else m for m in mags)
 
-        return ObsDraws(
-            draw(nz.ang_vel, 3), draw(nz.gravity, 3), draw(nz.joint_pos, nj),
-            draw(nz.joint_vel, nj),
-            draw(hs.noise, hs.num_points) if hs is not None else None)
+    def obs_noise_widths(self) -> tuple:
+        """The five noisy parts' widths, in the columns' order."""
+        hs, nj = self.cfg.height_scan, self.num_actions
+        return (3, 3, nj, nj, hs.num_points if hs is not None else 0)
 
     # ---------------- the stages' plain versions ----------------
 
@@ -773,15 +781,16 @@ class CatEnv:
                                   draws)
 
     def _observations(self, data: StepData, draws: ObsDraws) -> torch.Tensor:
-        def noise(x, z):
+        def noise(x, k):
+            z = draws.noise(k)
             return x if z is None else x + z
 
         parts = [
-            noise(data.base_ang_vel_b, draws.ang_vel) * self.ang_vel_scale,
+            noise(data.base_ang_vel_b, 0) * self.ang_vel_scale,
             data.command * self._cmd_scale,
-            noise(data.projected_gravity, draws.gravity) * self.gravity_scale,
-            noise(data.joint_pos, draws.joint_pos),
-            noise(data.joint_vel, draws.joint_vel) * self.joint_vel_scale,
+            noise(data.projected_gravity, 1) * self.gravity_scale,
+            noise(data.joint_pos, 2),
+            noise(data.joint_vel, 3) * self.joint_vel_scale,
             data.action,
         ]
         hs = self.cfg.height_scan
@@ -791,7 +800,7 @@ class CatEnv:
                                                    data.base_yaw))
             scan = torch.clamp(data.base_pos[:, 2:3] - hs.offset_z - h,
                                -hs.clip, hs.clip)
-            parts.append(noise(scan, draws.scan))
+            parts.append(noise(scan, 4))
         return torch.cat(parts, dim=1)
 
     def scan_points(self, base_pos, base_yaw) -> torch.Tensor:

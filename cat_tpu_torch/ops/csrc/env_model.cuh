@@ -24,9 +24,10 @@
 
 namespace envk {
 
-constexpr int kThreads = 128;     // threads a block of env_obs: one an output
 constexpr int kBlockThreads = 256;  // at most, a block of env_terms and
                                     // env_update (ops/env_step.py THREADS)
+constexpr int kObsThreads = 512;  // at most, a block of env_obs
+                                  // (ops/env_step.py OBS_THREADS_MAX)
 constexpr int kMaxSlots = 64;     // report slots env_terms stages: a 64-bit
                                   // mask of them (envs/cat.py MAX_SLOTS)
 constexpr int kMaxDofs = 32;
@@ -165,23 +166,34 @@ struct Hfield {
   float max_u, max_v;        // R - 1.001, C - 1.001
 };
 
-// height_at: the grid coordinate clamped to [0, R - 1.001] (a NaN stays
-// NaN and reads cell 0), the cell's four corners in one load, the bilinear
-// blend in the plain version's order
-__device__ __forceinline__ float height_at(const Hfield& hf, float x,
-                                           float y) {
-  if (hf.cells == nullptr) return 0.f;
+// height_at in two halves, so that a caller can have several lookups'
+// loads in flight: cell_of, the grid coordinate clamped to [0, R - 1.001]
+// (a NaN stays NaN and reads cell 0), the cell's row of the corner table
+// and the fractions; blend, the bilinear blend of the cell's four corners
+// (one load) in the plain version's order
+struct Cell {
+  int index;
+  float fu, fv;
+};
+__device__ __forceinline__ Cell cell_of(const Hfield& hf, float x, float y) {
   float u = (x * hf.inv_cell + hf.half_rows) - 0.5f;
   float v = (y * hf.inv_cell + hf.half_cols) - 0.5f;
   u = clampf(u, 0.f, hf.max_u);
   v = clampf(v, 0.f, hf.max_v);
   const float u0 = floorf(u), v0 = floorf(v);
-  const float fu = u - u0, fv = v - v0;
   const int iu = isnan(u0) ? 0 : static_cast<int>(u0);
   const int iv = isnan(v0) ? 0 : static_cast<int>(v0);
-  const float4 c = __ldg(hf.cells + (iu * (hf.cols - 1) + iv));
+  return {iu * (hf.cols - 1) + iv, u - u0, v - v0};
+}
+__device__ __forceinline__ float blend(float4 c, float fu, float fv) {
   const float gu = 1.f - fu, gv = 1.f - fv;
   return ((c.x * gu * gv + c.y * gu * fv) + c.z * fu * gv) + c.w * fu * fv;
+}
+__device__ __forceinline__ float height_at(const Hfield& hf, float x,
+                                           float y) {
+  if (hf.cells == nullptr) return 0.f;
+  const Cell c = cell_of(hf, x, y);
+  return blend(__ldg(hf.cells + c.index), c.fu, c.fv);
 }
 
 // envs/constraints.py _hist_force_norm of one report slot: the largest
@@ -395,10 +407,13 @@ __device__ __forceinline__ int small_div(int x, int d, float rd) {
 
 // The entries of a rows x cols tile dealt to the block's threads in turn:
 // thread t takes entries t, t + blockDim.x, ..., walked without a division
+// (or thread t of nt dealt threads, 0 <= t < nt: entries t, t + nt, ...)
 struct TileWalk {
   int r, c, dr, dc, rows, cols;
-  __device__ TileWalk(int rows_, int cols_) : rows(rows_), cols(cols_) {
-    const int nt = blockDim.x, t = threadIdx.x;
+  __device__ TileWalk(int rows_, int cols_)
+      : TileWalk(rows_, cols_, threadIdx.x, blockDim.x) {}
+  __device__ TileWalk(int rows_, int cols_, int t, int nt)
+      : rows(rows_), cols(cols_) {
     const float rc = 1.f / static_cast<float>(cols > 0 ? cols : 1);
     dr = cols > 0 ? small_div(nt, cols, rc) : 0;
     dc = nt - dr * cols;
@@ -420,6 +435,12 @@ struct TileWalk {
 template <class F>
 __device__ __forceinline__ void for_tile(int rows, int cols, F f) {
   for (TileWalk w(rows, cols); w.more(); w.next()) f(w.r, w.c);
+}
+// the same, the tile dealt to nt threads of which the caller is thread t
+template <class F>
+__device__ __forceinline__ void for_tile(int rows, int cols, int t, int nt,
+                                         F f) {
+  for (TileWalk w(rows, cols, t, nt); w.more(); w.next()) f(w.r, w.c);
 }
 
 // The columns of a rows x cols tile dealt to the block's threads: with

@@ -19,15 +19,18 @@ the kernel (built by plain nvcc with ``-fmad=false``, bound with ctypes) or
 raise; on a CPU tensor they run the plain version. There is no fallback
 from the card to the plain version. The random draws stay in PyTorch: the
 env draws them before the kernel that reads them (``UpdateDraws``,
-``ObsDraws``). The env's device tables (the term and column tables, int32
-index tables, the heightfield's packed corners, ``env_update``'s ticket)
-are made at its first launch on a device, outside any capture.
+``ObsDraws``: the observation noise as raw U(0, 1) draws, whose affine to
+U(-mag, mag) the kernel applies). The env's device tables (the term and
+column tables, int32 index tables, the heightfield's packed corners,
+``env_update``'s ticket) are made at its first launch on a device,
+outside any capture.
 
-``env_terms`` and ``env_update`` give a block of threads a group of
-consecutive envs (``env_geometry``) and stage its rows through shared
-memory; ``env_update`` sums the finished-episode accumulators itself, in
-the order ``fold_shares`` repeats. ``EnvTermsKernel(clocks=True)`` and
-``EnvUpdateKernel(clocks=True)`` bind each kernel's phase-clock build
+Each kernel gives a block of threads a group of consecutive envs
+(``env_geometry``) and stages its rows through shared memory;
+``env_update`` sums the finished-episode accumulators itself, in the order
+``fold_shares`` repeats. ``EnvTermsKernel(clocks=True)``,
+``EnvUpdateKernel(clocks=True)`` and ``EnvObsKernel(clocks=True)`` bind
+each kernel's phase-clock build
 (``-DENV_PHASE_CLOCKS``, a library of its own): ``phase_cycles`` returns
 each block's clock cycles in each of the kernel's ``phases`` over one
 launch. ``chip_smoke.py``'s kernel-env phase prints their medians; no
@@ -66,6 +69,14 @@ ENVS_PER_BLOCK = 16
 THREADS = 256
 THREADS_MAX = 256        # csrc/env_model.cuh kBlockThreads
 SMEM_LIMIT = 232448
+# env_obs: envs a block (at most, as above) and threads a block
+# (csrc/env_model.cuh kObsThreads at most). 8 envs on 128 threads: 512
+# blocks for 4096 envs, four an SM, one wave (the geometries timed are in
+# PERF.md)
+OBS_ENVS_PER_BLOCK = 8
+OBS_THREADS = 128
+OBS_THREADS_MAX = 512
+OBS_ENV_VALS = 8         # csrc/env_obs.cu kEnvVals: an env's shared values
 
 
 class Terms(NamedTuple):
@@ -98,13 +109,36 @@ class UpdateDraws(NamedTuple):
 
 
 class ObsDraws(NamedTuple):
-    """The observation noise, each part's U(-mag, mag) (N, width), or None
-    (no noise on that part)."""
+    """The observation noise: each part's raw U(0, 1) draw u (N, width), or
+    None (no noise on that part), and each part's ``lo`` and ``span`` (hi
+    - lo), float32 numbers: the part's noise is lo + span * u, one rounding
+    an operation (``noise``), which the kernel computes itself."""
     ang_vel: Optional[torch.Tensor]
     gravity: Optional[torch.Tensor]
     joint_pos: Optional[torch.Tensor]
     joint_vel: Optional[torch.Tensor]
     scan: Optional[torch.Tensor]
+    lo: tuple = (0.0,) * 5
+    span: tuple = (0.0,) * 5
+
+    @classmethod
+    def uniform(cls, draws, mags) -> "ObsDraws":
+        """The five parts' draws (each a raw U(0, 1) draw or None) with
+        U(-mag, mag) of each part's ``mags`` entry (None: no noise): lo =
+        -mag and span = mag - (-mag), each rounded to float32 as PyTorch
+        rounds a Python number in a float32 operation."""
+        return cls(*draws, tuple(0.0 if m is None else f32(-m) for m in mags),
+                   tuple(0.0 if m is None else f32(m - (-m)) for m in mags))
+
+    @property
+    def draws(self) -> tuple:
+        """The five parts' raw draws, in the columns' order."""
+        return tuple(self[:5])
+
+    def noise(self, k: int) -> Optional[torch.Tensor]:
+        """Part k's noise, lo + span * u, or None."""
+        u = self[k]
+        return None if u is None else self.lo[k] + self.span[k] * u
 
 
 class Updated(NamedTuple):
@@ -195,14 +229,18 @@ def env_tables(env, device) -> dict:
 
 
 class Geometry(NamedTuple):
-    """How ``env_terms`` and ``env_update`` cut n envs: envs a block,
-    threads a block, blocks, and each kernel's shared memory a block in
-    bytes."""
+    """How the kernels cut n envs: ``env_terms`` and ``env_update``'s envs
+    a block, threads a block, blocks and each one's shared memory a block
+    in bytes; then ``env_obs``'s."""
     envs: int
     threads: int
     blocks: int
     terms_bytes: int
     update_bytes: int
+    obs_envs: int
+    obs_threads: int
+    obs_blocks: int
+    obs_bytes: int
 
 
 def _words(regions) -> int:
@@ -242,20 +280,40 @@ def update_smem(env, envs: int) -> int:
         E * 3, E, E * m.nv])
 
 
-def env_geometry(n: int, env) -> Geometry:
-    """``Geometry`` of ``env_terms`` and ``env_update`` for n envs of
-    ``env``: ``ENVS_PER_BLOCK`` envs a block (4096 envs: 256 blocks, one
-    wave on the H100's 132 SMs), halved while a block's shared memory
-    would pass ``SMEM_LIMIT``."""
-    envs = ENVS_PER_BLOCK
-    while envs > 1 and max(terms_smem(env, envs),
-                           update_smem(env, envs)) > SMEM_LIMIT:
+def obs_smem(env, envs: int) -> int:
+    """Bytes of ``csrc/env_obs.cu``'s ``ObsLayout`` for blocks of ``envs``
+    envs, region by region."""
+    m, E = env.model, envs
+    hs = env.cfg.height_scan
+    pts = hs.num_points if hs is not None else 0
+    return 4 * _words([
+        2 * pts, m.nj, E * m.nq, E * m.nv, E * 3, E * m.nj,
+        E * 3, E * 3, E * m.nj, E * m.nj, E * OBS_ENV_VALS,
+        E * env.num_obs])
+
+
+def _fit(envs: int, smem) -> int:
+    """``envs`` halved while ``smem(envs)`` passes ``SMEM_LIMIT``."""
+    while envs > 1 and smem(envs) > SMEM_LIMIT:
         envs //= 2
-    terms_b, update_b = terms_smem(env, envs), update_smem(env, envs)
-    if max(terms_b, update_b) > SMEM_LIMIT:
-        raise ValueError(f"one env's rows take {max(terms_b, update_b)} B "
-                         f"of shared memory, more than {SMEM_LIMIT}")
-    return Geometry(envs, THREADS, -(-n // envs), terms_b, update_b)
+    if smem(envs) > SMEM_LIMIT:
+        raise ValueError(f"one env's rows take {smem(envs)} B of shared "
+                         f"memory, more than {SMEM_LIMIT}")
+    return envs
+
+
+def env_geometry(n: int, env) -> Geometry:
+    """``Geometry`` of the three kernels for n envs of ``env``:
+    ``ENVS_PER_BLOCK`` envs a block of ``env_terms`` and ``env_update``
+    (4096 envs: 256 blocks, one wave on the H100's 132 SMs) and
+    ``OBS_ENVS_PER_BLOCK`` of ``env_obs``, each halved while a block's
+    shared memory would pass ``SMEM_LIMIT``."""
+    envs = _fit(ENVS_PER_BLOCK, lambda e: max(terms_smem(env, e),
+                                              update_smem(env, e)))
+    obs_envs = _fit(OBS_ENVS_PER_BLOCK, lambda e: obs_smem(env, e))
+    return Geometry(envs, THREADS, -(-n // envs), terms_smem(env, envs),
+                    update_smem(env, envs), obs_envs, OBS_THREADS,
+                    -(-n // obs_envs), obs_smem(env, obs_envs))
 
 
 def given_width(env) -> int:
@@ -632,29 +690,33 @@ class EnvObsKernel(_EnvKernel):
     """``csrc/env_obs.cu``: ``CatEnv.obs_stage``."""
 
     prefix = "env_obs"
+    phases = ("staging", "per-env and proprioceptive", "scan",
+              "write-back")
 
     def __call__(self, env, sim, command, action, draws: ObsDraws):
         m, hs = env.model, env.cfg.height_scan
         n, dev = action.shape[0], action.device
+        pts = hs.num_points if hs is not None else 0
         check_shapes(
             qpos=(sim.qpos, (n, m.nq)), qvel=(sim.qvel, (n, m.nv)),
             command=(command, (n, 3)), action=(action, (n, m.nj)),
-            draws=(draws, ((n, 3), (n, 3), (n, m.nj), (n, m.nj),
-                           (n, hs.num_points if hs is not None else 0))))
+            draws=(draws, ((n, 3), (n, 3), (n, m.nj), (n, m.nj), (n, pts))))
         tabs = env_tables(env, dev)
+        geo = geometry(tabs, n, env)
         table, (rows, cols), hf = tabs["hfield"]
         obs = torch.empty(n, env.num_obs, device=dev)
         self._launch(dev, [
             (c(sim.qpos), F), (c(sim.qvel), F), (c(command), F),
             (c(action), F), (tabs["t2m"], I32),
             (env._scan_grid if hs is not None else None, F), (table, F),
-            *((c(d), F) for d in draws), (obs, F)], [
-            n, m.nq, m.nv, m.nj, env.num_obs,
-            hs.num_points if hs is not None else 0, rows, cols], [
+            *((c(d), F) for d in draws.draws), (obs, F)], [
+            n, geo.obs_envs, geo.obs_threads, geo.obs_bytes, m.nq, m.nv,
+            m.nj, env.num_obs, pts, rows, cols], [
             *hf, *map(f32, (env.ang_vel_scale, *env.command_scale,
                             env.gravity_scale, env.joint_vel_scale)),
             f32(hs.offset_z if hs is not None else 0.0),
-            f32(hs.clip if hs is not None else 0.0)])
+            f32(hs.clip if hs is not None else 0.0),
+            *map(f32, draws.lo), *map(f32, draws.span)])
         return obs
 
 

@@ -8,7 +8,7 @@ Phases, each printed with its elapsed seconds:
   build: the eight kernels, ops/csrc/pgs_bj.cu, pgs_gs.cu, substep_dyn.cu,
      contact_rows.cu, substep_post.cu, env_terms.cu, env_update.cu and
      env_obs.cu, and the phase-clock builds of the three substep kernels
-     (-DSUBSTEP_PHASE_CLOCKS) and of env_terms and env_update
+     (-DSUBSTEP_PHASE_CLOCKS) and of the three env kernels
      (-DENV_PHASE_CLOCKS), libraries of their own, one plain nvcc each,
      started together, with ptxas's registers, stack and spills;
   kernel: the block-Jacobi kernel against its plain PyTorch version at
@@ -67,15 +67,15 @@ Phases, each printed with its elapsed seconds:
      ``measure.compare_env``, the largest error of each printed, each
      decision that came out otherwise with its margin in float32
      spacings (at most 4); two launches from one input equal bit for
-     bit; one launch of env_terms' and env_update's phase-clock builds,
-     the median cycles a block of each phase (and the largest block's);
+     bit; one launch of each kernel's phase-clock build, the median
+     cycles a block of each phase (and the largest block's);
      each kernel's time as CUDA-graph replays (50), the plain stage's
      replayed, the bound of ``measure.env_counts`` (each terrain cell the
      step reads counted once) and its share, beside the card's name and
-     power limit; last each kernel's ptxas registers and spills, and
-     env_terms' and env_update's shared memory a block and blocks an SM
-     at Solo12's shape (``env_step.env_geometry``): 4096 envs must run in
-     one wave, and neither may spill;
+     power limit; last each kernel's ptxas registers and spills, its
+     shared memory a block and blocks an SM at Solo12's shape (flat and
+     rough, ``env_step.env_geometry``): 4096 envs must run in one wave,
+     and none may spill;
   graph: the control step's CUDA graph (``Engine.__call__`` on the card)
      against the eager substep loop (``Engine._eager``) in each engine
      configuration the port runs: the flat env's block-Jacobi engine at
@@ -1295,8 +1295,8 @@ ENV_CLOCK_KERNELS: dict = {}
 
 
 def env_clock_kernels() -> dict:
-    """name -> a wrapper of the phase-clock build of ``env_terms`` and
-    ``env_update`` (never on a path)."""
+    """name -> a wrapper of the phase-clock build of each env kernel
+    (never on a path)."""
     from cat_tpu_torch.ops import env_step
 
     if not ENV_CLOCK_KERNELS:
@@ -1381,8 +1381,7 @@ def kernel_env_phase(dev, smi):
             if not cmp.ok or not same:
                 raise RuntimeError(f"{name} disagrees with its plain stage "
                                    f"({label})")
-            if name != "env_obs":
-                env_phase_clocks(phase, label, name, call, dev)
+            env_phase_clocks(phase, label, name, call, dev)
             ms = measure.graph_ms(call, 50)
             plain_ms = measure.graph_ms(plain, 5)
             byts, flops = counts[name]
@@ -1409,22 +1408,22 @@ def kernel_env_phase(dev, smi):
 
 
 def env_resources(phase, dev):
-    """kernel-env: env_terms' and env_update's ptxas registers and spills
-    (and their clock builds'), shared memory a block and blocks an SM at
-    Solo12's shape and N_ENVS (``env_step.env_geometry``); fails unless
-    N_ENVS envs run in one wave and neither production kernel spills."""
+    """kernel-env: each env kernel's ptxas registers and spills (and its
+    clock build's), shared memory a block and blocks an SM at N_ENVS of
+    Solo12's shapes (``env_step.env_geometry``; flat, and rough for
+    env_obs, whose rows the scan widens); fails unless N_ENVS envs run in
+    one wave and no production kernel spills."""
     import torch
 
     from cat_tpu_torch.ops import build, env_step
-    from cat_tpu_torch.tasks import solo12_flat
+    from cat_tpu_torch.tasks import solo12_flat, solo12_rough
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    geo = env_step.env_geometry(N_ENVS, solo12_flat.make_env(
+    shapes = {label: env_step.env_geometry(N_ENVS, task.make_env(
         8, device=torch.device("cpu")))
+        for label, task in (("flat", solo12_flat), ("rough", solo12_rough))}
     bad = []
     for name, kernel in env_step.ENV_KERNELS:
-        if not kernel.phases:
-            continue
         clocked = env_clock_kernels()[name].load()
         for fn, r in build.ptxas_resources(clocked.log).items():
             log(phase, f"{name} (phase-clock build): {fn}: "
@@ -1437,16 +1436,24 @@ def env_resources(phase, dev):
                        f"stack frame")
             if r["spill_stores"] or r["spill_loads"]:
                 bad.append(f"{fn} spills")
-        smem = geo.terms_bytes if name == "env_terms" else geo.update_bytes
-        per_sm = kernel.blocks_per_sm(dev, geo.threads, smem)
-        waves = -(-geo.blocks // (per_sm * sms))
-        log(phase, f"{name} at Solo12's shape: {smem} B of shared memory a "
-                   f"block of {geo.envs} envs and {geo.threads} threads, "
-                   f"{per_sm} blocks an SM (occupancy calculator); {N_ENVS} "
-                   f"envs = {geo.blocks} blocks over {sms} SMs x {per_sm} = "
-                   f"{per_sm * sms} slots: {waves} wave(s)")
-        if waves != 1:
-            bad.append(f"{name} takes {waves} waves")
+        for label in (shapes if name == "env_obs" else ("flat",)):
+            geo = shapes[label]
+            envs, threads, blocks, smem = (
+                (geo.obs_envs, geo.obs_threads, geo.obs_blocks,
+                 geo.obs_bytes) if name == "env_obs" else
+                (geo.envs, geo.threads, geo.blocks,
+                 geo.terms_bytes if name == "env_terms"
+                 else geo.update_bytes))
+            per_sm = kernel.blocks_per_sm(dev, threads, smem)
+            waves = -(-blocks // (per_sm * sms))
+            log(phase, f"{name} at Solo12 {label}'s shape: {smem} B of "
+                       f"shared memory a block of {envs} envs and {threads} "
+                       f"threads, {per_sm} blocks an SM (occupancy "
+                       f"calculator); {N_ENVS} envs = {blocks} blocks over "
+                       f"{sms} SMs x {per_sm} = {per_sm * sms} slots: "
+                       f"{waves} wave(s)")
+            if waves != 1:
+                bad.append(f"{name} takes {waves} waves ({label})")
     if bad:
         raise RuntimeError(f"env kernels' resources: {bad}")
 

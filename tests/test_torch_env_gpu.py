@@ -20,13 +20,18 @@ and 31 envs) against their plain stages; env_update's accumulators
 against ``env_step.fold_shares`` of its envs' shares (the order it sums
 them in) bit for bit, and the shares against the plain stage's; and its
 ticket back at 0 after a launch and after each of three CUDA-graph
-replays, the replays equal bit for bit. These tests need a card and skip
-without one; the file imports no JAX:
+replays, the replays equal bit for bit. Then env_obs: with the step's
+noise and with null draws (no noise) on each state, at ragged N (1, 9,
+4097: a block's group not filled, a last block of one env) on flat and
+rough, each within compare_env and a second launch bit for bit, and its
+launch refusing a shared-memory count that is not its layout's. These
+tests need a card and skip without one; the file imports no JAX:
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_env_gpu.py
 """
 
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -300,6 +305,88 @@ def test_ticket_is_back_at_zero_after_launches_and_replays(cases):
         assert int(ticket.item()) == 0
         assert all(torch.equal(a, b) for a, b in zip(
             pytree.tree_leaves(out), eager))
+
+
+class _Obs(NamedTuple):
+    obs: torch.Tensor
+
+
+def _obs_against_plain(env, sim, command, action, draws):
+    """env_obs against obs_stage on one input: the comparison and whether
+    a second launch gave the same bits."""
+    out = env_step.ENV_OBS(env, sim, command, action, draws)
+    ref = env.obs_stage(sim, command, action, draws)
+    again = env_step.ENV_OBS(env, sim, command, action, draws)
+    n = action.shape[0]
+    cmp = measure.compare_env(_Obs(out), _Obs(ref), torch.full(
+        (n,), float("inf"), device=action.device))
+    return cmp, torch.equal(out, again), out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_env_obs_with_and_without_noise(cases, case):
+    """env_obs on the case's state with the step's noise and with null
+    draws, each against obs_stage; the two differ only in the noisy
+    parts' columns (the command and the action have none)."""
+    env, (state, action, gen) = cases[case]
+    g = torch.Generator(device=action.device)
+    g.set_state(gen.get_state())
+    args = (env, state.sim, state.command, state.action)
+    noisy = env._obs_draws(g, N)
+    assert all(d is not None for d in noisy.draws[:4])
+    outs = []
+    for draws in (noisy, env_step.ObsDraws(None, None, None, None, None)):
+        cmp, same, out = _obs_against_plain(*args, draws)
+        assert cmp.ok and same, cmp.text
+        outs.append(out)
+    nj = env.model.nj
+    quiet = torch.zeros(env.num_obs, dtype=torch.bool)
+    quiet[3:6] = True
+    quiet[9 + 2 * nj:9 + 3 * nj] = True
+    differ = (outs[0] != outs[1]).any(0).cpu()
+    assert not differ[quiet].any() and differ[~quiet].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 9, 4097])
+@pytest.mark.parametrize("task", ["flat", "rough"])
+def test_env_obs_at_ragged_n(cuda, task, n):
+    """env_obs at n envs after 30 steps against obs_stage on the step's
+    own inputs, and a second launch bit for bit."""
+    env = {"flat": solo12_flat, "rough": solo12_rough}[task].make_env(
+        n, device=cuda)
+    inputs = measure.env_inputs(env, n, STEPS,
+                                policy("solo12_flat_2000it", cuda))
+    geo = env_step.env_geometry(n, env)
+    assert n % geo.obs_envs and geo.obs_blocks == -(-n // geo.obs_envs)
+    out, ref, margins, call, _ = measure.env_stage_pairs(
+        env, *inputs)["env_obs"]
+    cmp = measure.compare_env(out, ref, margins)
+    assert cmp.ok, f"env_obs at {n}: {cmp.text}"
+    assert all(torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(out), pytree.tree_leaves(call())))
+
+
+@pytest.mark.gpu
+def test_env_obs_launch_refuses_a_shared_memory_mismatch(cases):
+    """A geometry whose shared bytes are not the kernel's layout's: the
+    launch raises and counts nothing."""
+    env, (state, action, gen) = cases["rough"]
+    tabs = env_step.env_tables(env, action.device)
+    geo = env_step.geometry(tabs, N, env)
+    g = torch.Generator(device=action.device)
+    g.set_state(gen.get_state())
+    draws = env._obs_draws(g, N)
+    launches = env_step.ENV_OBS.launches
+    try:
+        tabs[("geometry", N)] = geo._replace(obs_bytes=geo.obs_bytes + 16)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            env_step.ENV_OBS(env, state.sim, state.command, state.action,
+                             draws)
+    finally:
+        tabs[("geometry", N)] = geo
+    assert env_step.ENV_OBS.launches == launches
 
 
 class _Step(tuple):

@@ -41,12 +41,19 @@ one list of numpy uniforms, and each env's physics step returns that state
     task; ``fold_shares`` (the order in which env_update sums the
     accumulators) is a one-by-one float32 sum in that order, bit for bit,
     and within (N - 1) unit roundoffs of the float64 sum;
+  * the observation noise as raw draws (``ObsDraws``: each part's U(0, 1)
+    draw and its float32 lo and span) gives the observation
+    ``CatEnv._uniform``'s U(-mag, mag) draws gave, bit for bit, from the
+    same generator state; ``env_obs``'s geometry covers every env in one
+    wave and its shared bytes are its kernel's ``ObsLayout``, read region
+    by region from ``csrc/env_obs.cu``;
   * the measuring side: ``measure.env_counts`` counts each heightfield
     cell a step reads once, and ``measure.plain_stages`` records a step's
     stages without changing what the step gives.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -542,6 +549,112 @@ def test_env_geometry_covers_every_env_within_shared_memory(n):
             assert geo.blocks <= 2 * 132
             assert 2 * (max(geo.terms_bytes, geo.update_bytes) + 1024) \
                 <= 228 * 1024
+
+
+@pytest.mark.parametrize("kind", ["flat", "rough"])
+def test_raw_obs_draws_keep_the_uniform_noise_bits(kind):
+    """``obs_stage`` with ``_obs_draws``' raw U(0, 1) draws and their
+    affine gives, bit for bit, the observation whose noise is each part's
+    ``_uniform`` U(-mag, mag) (drawn from the same generator state, the
+    same ``torch.rand`` calls) added to it before its scale; both leave
+    the generator in the same state."""
+    te = port_env(_cfgs(kind)[1])
+    sim_a, state_a = _state_arrays(te, np.random.default_rng(61))
+    ts, tsim = _states_port(te, sim_a, state_a)
+    g_raw, g_old = torch.Generator().manual_seed(5), torch.Generator()
+    g_old.set_state(g_raw.get_state())
+    draws = te._obs_draws(g_raw, N)
+    assert sum(d is not None for d in draws.draws) == (
+        5 if kind == "rough" else 4)
+    z = [None if mag is None else te._uniform(g_old, (N, w), -mag, mag)
+         for mag, w in zip(te.obs_noise(), te.obs_noise_widths())]
+    assert torch.equal(g_raw.get_state(), g_old.get_state())
+
+    def noise(x, k):
+        return x if z[k] is None else x + z[k]
+
+    d = te.step_data(tsim, ts.command, ts.action, None)
+    want = [noise(d.base_ang_vel_b, 0) * te.ang_vel_scale,
+            d.command * te._cmd_scale,
+            noise(d.projected_gravity, 1) * te.gravity_scale,
+            noise(d.joint_pos, 2), noise(d.joint_vel, 3) * te.joint_vel_scale,
+            d.action]
+    if kind == "rough":
+        quiet = te.obs_stage(tsim, ts.command, ts.action,
+                             ObsDraws(None, None, None, None, None))
+        want.append(noise(quiet[:, 9 + 3 * te.model.nj:], 4))
+    got = te.obs_stage(tsim, ts.command, ts.action, draws)
+    assert torch.equal(got, torch.cat(want, dim=1))
+
+
+def _obs_layout_words(source, envs, nj, nq, nv, n_obs, n_scan):
+    """4-byte words of ``csrc/env_obs.cu``'s ``ObsLayout``: each of its
+    ``l.take(...)`` regions, read from the source and evaluated, rounded
+    up to 16 bytes."""
+    import re
+    from types import SimpleNamespace
+
+    body = source[source.index("struct ObsLayout"):]
+    body = body[:body.index("words = l.words;")]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", source))
+    scope = dict(E=envs, a=SimpleNamespace(nj=nj, nq=nq, nv=nv, n_obs=n_obs,
+                                           n_scan=n_scan),
+                 **{k: int(v) for k, v in consts.items()})
+    regions = re.findall(r"l\.take\((.+?)\);", body)
+    assert len(regions) == 12
+    return sum(-(-eval(r, scope) // 4) * 4 for r in regions)
+
+
+@pytest.mark.parametrize("envs", [1, 7, 16, 32])
+def test_env_obs_shared_bytes_are_its_kernel_s_layout(envs):
+    """``env_step.obs_smem`` (the bytes ``env_geometry`` passes and the
+    launch checks) counts ``ObsLayout`` of the kernel's source region by
+    region, for every registered task."""
+    from cat_tpu_torch.ops import env_step
+
+    source = (Path(env_step.__file__).parent / "csrc"
+              / "env_obs.cu").read_text()
+    for task in sorted(registry.list_tasks()):
+        env = registry.get(task).make_env(num_envs=4, device="cpu")
+        m, hs = env.model, env.cfg.height_scan
+        words = _obs_layout_words(
+            source, envs, m.nj, m.nq, m.nv, env.num_obs,
+            hs.num_points if hs is not None else 0)
+        assert env_step.obs_smem(env, envs) == 4 * words, task
+
+
+@pytest.mark.parametrize("n", [1, 9, 4096, 4097])
+def test_env_obs_geometry_covers_every_env_in_one_wave(n):
+    """``env_geometry``'s env_obs part: its blocks cover the envs, its
+    threads are whole warps, a thread an env at least, within the
+    kernel's bound; at 4096 envs every block fits on the H100's 132 SMs
+    at once (2048 threads and 228 KB of shared memory an SM, 1 KB of it
+    kept a block)."""
+    from cat_tpu_torch.ops import env_step
+
+    for task in sorted(registry.list_tasks()):
+        env = registry.get(task).make_env(num_envs=4, device="cpu")
+        geo = env_step.env_geometry(n, env)
+        E, T = geo.obs_envs, geo.obs_threads
+        assert (geo.obs_blocks - 1) * E < n <= geo.obs_blocks * E
+        assert T % 32 == 0 and E <= T <= env_step.OBS_THREADS_MAX
+        assert 0 < geo.obs_bytes <= 227 * 1024 and geo.obs_bytes % 16 == 0
+        assert geo.obs_bytes == env_step.obs_smem(env, E)
+        if n == 4096:
+            per_sm = min(2048 // T, 228 * 1024 // (geo.obs_bytes + 1024))
+            assert geo.obs_blocks <= 132 * per_sm, task
+
+
+def test_the_obs_geometry_sweep_takes_only_geometries_env_obs_takes():
+    """``tools/env_kernel_sweep.py``'s env_obs geometries: whole warps, a
+    thread an env at least, no more than its launch bound."""
+    from cat_tpu_torch.tools.env_kernel_sweep import parse_obs_geometries
+
+    assert parse_obs_geometries("16x256,32x512,8x32") == (
+        (16, 256), (32, 512), (8, 32))
+    for bad in ("16x16", "16x100", "0x64", "64x32", "8x1024"):
+        with pytest.raises(ValueError):
+            parse_obs_geometries(bad)
 
 
 def test_the_geometry_sweep_takes_only_geometries_the_kernels_take():

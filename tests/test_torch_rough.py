@@ -30,6 +30,7 @@ from cat_tpu_torch.envs import env as tenv
 from cat_tpu_torch.models.solo12 import SOLO12_KD, SOLO12_KP
 from cat_tpu_torch.models.solo12 import solo12_model as port_solo12
 from cat_tpu_torch.ops import pgs
+from cat_tpu_torch.ops.env_step import ObsDraws
 from cat_tpu_torch.sim import collision as tc
 from cat_tpu_torch.sim import dynamics as td
 from cat_tpu_torch.sim import engine as tem
@@ -198,18 +199,19 @@ def test_one_step_sensitivity_to_ulp_changes(start, bound):
 # ---------------------------------------------------------------------------
 
 def _jax_obs_noise(env, state):
-    """The observation noise the JAX env's next step draws (the step key's
-    last split, folded with the term index), in term order."""
-    nz, hs = env.cfg.noise, env.cfg.height_scan
+    """The raw U(0, 1) draws under the observation noise the JAX env's next
+    step draws (the step key's last split, folded with the term index), in
+    term order: ``jax.random.uniform`` of each key and shape, which its
+    ``_uniform`` turns into U(-mag, mag)."""
+    hs = env.cfg.height_scan
     k_step = jax.random.fold_in(jax.random.PRNGKey(state.seed[0]),
                                 state.common_step)
     k_noise = jax.random.split(k_step, 8)[7]
     n = state.command.shape[0]
-    shapes = ((nz.ang_vel, 3), (nz.gravity, 3), (nz.joint_pos, 12),
-              (nz.joint_vel, 12), (hs.noise, hs.num_points))
-    return [torch.from_numpy(np.array(jenv._uniform(
-        jax.random.fold_in(k_noise, i), (n, w), -mag, mag)))
-        for i, (mag, w) in enumerate(shapes)]
+    widths = (3, 3, 12, 12, hs.num_points)
+    return [torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.fold_in(k_noise, i), (n, w))))
+        for i, w in enumerate(widths)]
 
 
 N_ENV, ENV_STEPS = 6, 5
@@ -255,12 +257,14 @@ def rough_rollout():
                 ts = ts._replace(episode_len=ep, origin=org)
             noise = _jax_obs_noise(je, js)
 
-            def injected(gen, shape, lo, hi, noise=noise):
-                x = noise.pop(0)
-                assert tuple(x.shape) == tuple(shape) and -lo == hi
-                return x
+            def injected(gen, n, noise=noise):
+                assert [tuple(x.shape) for x in noise] == [
+                    (n, w) for w in te.obs_noise_widths()]
+                draws = ObsDraws.uniform(noise, te.obs_noise())
+                noise.clear()
+                return draws
 
-            mp.setattr(te, "_uniform", injected)
+            mp.setattr(te, "_obs_draws", injected)
             a = rng.uniform(-1.0, 1.0, (N_ENV, 12)).astype(np.float32)
             js, jo, jr, jd, _ = step(js, jnp.asarray(a))
             ts, to, tr, td_, _ = te.step(ts, torch.from_numpy(a), gen)
